@@ -6,22 +6,29 @@
 
 Phases:
   1. device and build: the card's name and power limit, then every CUDA
-     kernel of the main path compiled from the sources in this checkout;
+     kernel of the two paths compiled from the sources in this checkout,
+     one nvcc per source, all started together;
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes of the main path, in every mode; timed with CUDA events over
+     shapes of its path, in every mode; timed with CUDA events over
      CUDA-graph replays beside its plain version, the one PyTorch call
      that computes the same function (library_ms) and its byte bound;
-  3. the main path: the CLI transcribes a seeded ~6 s sine-mixture WAV
-     with full-width t5_small (random weights from a seed) through
-     --decode-path fast with the beam-2 repair; the kernel's launch count
-     must equal 8 (decoder layers) x the decode steps run;
-  4. the kernel inside the model: 64 bf16 decode steps of t5_small on the
-     paged path (kernel for self- and cross-attention) against the dense
-     path on the same tokens, and a small fp32 model on the card against
-     the same model on the CPU;
-  5. where the time goes: the main path's stages on the host clock, and a
-     window of its decode steps under torch.profiler (device busy time,
-     idle share, the kernels that take the time).
+  3. the two main paths, each with every launch count set to 0 just
+     before it and read just after:
+     a. t5_small: the CLI transcribes a seeded ~6 s sine-mixture WAV at
+        full width (random weights from a seed) through --decode-path
+        fast with the beam-2 repair; the paged kernel's launches must
+        equal 8 (decoder layers) x the decode steps run;
+     b. the flagship perceiver_tf_mc13 (kv_quant="int8c4p", int8 decoder
+        weights): api.init_model + api.transcribe on a seeded 16 s song
+        (8 segments, one batch, 104 decoder streams) with the beam-2
+        repair; the int4 cross kernel's launches must equal 8 x the
+        decode steps run, and the paged kernel must not launch;
+  4. each kernel inside its model: 64 bf16 decode steps through the kernel
+     against the plain path on the same tokens, and a small fp32 model on
+     the card against the same model on the CPU;
+  5. where the time goes, for each path: its stages on the host clock,
+     and a window of its decode steps under torch.profiler (device busy
+     time, idle share, the kernels that take the time).
 
 Any failure raises: nothing is caught and nothing falls back. The last
 line is {"ok": true, "device": {...}}; the line before it lists each
@@ -41,7 +48,7 @@ import time
 
 import numpy as np
 
-KERNEL_SOURCES = ["paged_decode_attention"]
+KERNEL_SOURCES = ["paged_decode_attention", "int4_cross_attention"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 
@@ -60,6 +67,17 @@ TOL_BF16 = 1.6e-2
 TOL_MODEL_BF16 = 0.25
 # fp32 model on the card vs on the CPU (TF32 off): summation order only
 TOL_MODEL_FP32 = 1e-3
+# the same with an int8 self cache quantized on each device: a one-ulp
+# difference in a projection can move a K/V value by one int8 level
+# (scale/127 of its row), as in tests/test_torch_t5.py
+TOL_MODEL_INT8 = 2e-2
+# int4 cross kernel's shape on the flagship path: H, dk, T (encoder frames)
+H4, DK4, T4 = 6, 64, 256
+FLAGSHIP = dict(kv_quant="int8c4p", weight_quant="int8")
+# the tiny flagship of tests/test_torch_flagship.py
+TINY_FLAGSHIP = dict(d_model=64, d_kv=16, num_heads=4, d_ff=128,
+                     num_decoder_layers=2, ptf_d_latent=64, ptf_num_blocks=1,
+                     conv_channels=8)
 
 
 def log(msg: str) -> None:
@@ -229,6 +247,102 @@ def time_kernel(dev):
     return rows
 
 
+def int4_inputs(S, gen, dev, dk=DK4, T=T4):
+    """Packed int4 cross K/V of N(0, 1) rows: [k4, ks, v4, vs] on dev."""
+    import torch
+    from yourmt3_tpu_torch.ops.kv_quant import quantize_kv4_crosspack
+    out = []
+    for _ in "kv":
+        packed, scale = quantize_kv4_crosspack(torch.randn(S, H4, T, dk, generator=gen))
+        out += [packed.to(dev), scale.to(dev)]
+    return out
+
+
+def check_int4(dev):
+    """The int4 cross kernel against its plain version at S in {8, 104},
+    T in {128, 256}, dk in {32, 64}, fp32 and bf16 q."""
+    import torch
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    gen = torch.Generator().manual_seed(2)
+    worst = {"fp32": 0.0, "bf16": 0.0}
+    for S in (8, 104):
+        for T in (128, 256):
+            for dk in (32, 64):
+                kv = int4_inputs(S, gen, dev, dk, T)
+                q = torch.randn(S, H4, dk, generator=gen).to(dev)
+                errs = {}
+                for qt, qdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                    qq = q.to(qdt)
+                    got = ia.int4_cross_attention(qq, *kv)
+                    want = ia.int4_cross_attention_plain(qq, *kv)
+                    assert got.dtype == qdt and got.shape == (S, H4, dk)
+                    assert bool(torch.isfinite(got).all())
+                    errs[qt] = (got.float() - want.float()).abs().max().item()
+                    worst[qt] = max(worst[qt], errs[qt])
+                torch.cuda.synchronize()
+                log(f"int4 kernel check S={S} T={T} dk={dk}: max|err| fp32 q "
+                    f"{errs['fp32']:.3e} (tol {TOL_FP32}), bf16 q "
+                    f"{errs['bf16']:.3e} (tol {TOL_BF16})")
+                assert errs["fp32"] < TOL_FP32, (S, T, dk, errs)
+                assert errs["bf16"] < TOL_BF16, (S, T, dk, errs)
+    return worst
+
+
+def bound_int4(S):
+    """(ms, "bytes" or "operations") for one int4 cross call at the
+    flagship's shape: bf16 q and out, packed K and V, fp32 scales, each
+    read or written once."""
+    nbytes = (2 * S * H4 * DK4 * 2  # q and out, bf16
+              + 2 * S * H4 * (DK4 // 2) * T4  # packed K and V
+              + 2 * S * H4 * T4 * 4)  # their fp32 scales
+    ops = 4 * S * H4 * T4 * DK4  # q.k and w.v multiply-adds
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_int4(dev):
+    """Times at S = 104 (8 segments x 13 channels, the flagship's batch)
+    and S = 624 (the tuned batch of 48), bf16 q, the 8 decoder layers'
+    cross caches cycled."""
+    import torch
+    import torch.nn.functional as F
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    from yourmt3_tpu_torch.ops.kv_quant import dequantize_kv4_crosspack
+    gen = torch.Generator().manual_seed(3)
+    layers, rows = 8, {}
+    for S in (104, 624):
+        q = torch.randn(S, H4, DK4, generator=gen).to(dev).to(torch.bfloat16)
+        caches = [int4_inputs(S, gen, dev) for _ in range(layers)]
+        dense = [(dequantize_kv4_crosspack(k4, ks).to(torch.bfloat16),
+                  dequantize_kv4_crosspack(v4, vs).to(torch.bfloat16))
+                 for k4, ks, v4, vs in caches]
+        q4 = q[:, :, None, :]
+
+        def kernel():
+            for c in caches:
+                ia.int4_cross_attention(q, *c)
+
+        def plain():
+            for c in caches:
+                ia.int4_cross_attention_plain(q, *c)
+
+        def library():
+            for kd, vd in dense:
+                F.scaled_dot_product_attention(q4, kd, vd, scale=1.0)
+
+        b_ms, b_by = bound_int4(S)
+        rows[S] = dict(ms=graph_ms(kernel, layers), plain_ms=graph_ms(plain, layers),
+                       library_ms=graph_ms(library, layers),
+                       bound_ms=b_ms, bound_by=b_by)
+        r = rows[S]
+        log(f"time int4 cross S={S} H={H4} dk={DK4} T={T4}: kernel "
+            f"{r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, "
+            f"library (SDPA, dense bf16) {r['library_ms'] * 1e3:.2f} us, bound "
+            f"({b_by}) {b_ms * 1e3:.2f} us")
+        del caches, dense
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4
 # ---------------------------------------------------------------------------
@@ -250,14 +364,13 @@ def main_path(tmp):
     from yourmt3_tpu_torch.data.audio_io import write_wav
     from yourmt3_tpu_torch.models import decoding
     from yourmt3_tpu_torch.ops import decode_attention as da
+    from yourmt3_tpu_torch.ops.int4_cross_attention import int4_cross_attention
     from yourmt3_tpu_torch.tokens.midi_io import midi2note
 
     seconds = 6.0
     wav = os.path.join(tmp, "song.wav")
     write_wav(wav, sine_song(seconds), 16000)
-    da.paged_decode_attention.launches = 0
-    decoding.greedy_decode.steps = 0
-    decoding.beam_decode.steps = 0
+    reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -267,6 +380,7 @@ def main_path(tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = da.paged_decode_attention.launches
+    int4_launches = int4_cross_attention.launches
     greedy, beam = decoding.greedy_decode.steps, decoding.beam_decode.steps
     assert len(outs) == 1 and os.path.exists(outs[0]), outs
     notes = midi2note(outs[0])
@@ -276,6 +390,59 @@ def main_path(tmp):
         f"notes {len(notes)}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     assert launches == 8 * (greedy + beam) and launches > 0, (launches, greedy, beam)
+    assert int4_launches == 0, int4_launches
+    return launches
+
+
+def reset_counts():
+    """Every kernel's launch count and the decode step counts to 0."""
+    from yourmt3_tpu_torch.models import decoding
+    from yourmt3_tpu_torch.ops import decode_attention as da
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    da.paged_decode_attention.launches = 0
+    ia.int4_cross_attention.launches = 0
+    decoding.greedy_decode.steps = 0
+    decoding.beam_decode.steps = 0
+
+
+def flagship_path(tmp):
+    """Phase 3b: the flagship through the public API on a 16 s song."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.data.audio_io import write_wav
+    from yourmt3_tpu_torch.models import decoding
+    from yourmt3_tpu_torch.ops import decode_attention as da
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    from yourmt3_tpu_torch.tokens.midi_io import midi2note
+
+    seconds = 16.0
+    wav = os.path.join(tmp, "flagship.wav")
+    write_wav(wav, sine_song(seconds), 16000)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = api.init_model("perceiver_tf_mc13", "mc13_full_plus_256", seed=0,
+                            **FLAGSHIP)
+    t_init = time.perf_counter() - t0
+    out = api.transcribe(bundle, wav, os.path.join(tmp, "flagship.mid"),
+                         batch_size=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, paged = ia.int4_cross_attention.launches, da.paged_decode_attention.launches
+    greedy, beam = decoding.greedy_decode.steps, decoding.beam_decode.steps
+    assert os.path.exists(out), out
+    notes = midi2note(out)
+    log(f"main path: perceiver_tf_mc13 int8c4p + int8 weights, {seconds} s audio "
+        f"(8 segments, 104 streams) in {wall:.2f} s (init {t_init:.2f} s + "
+        f"transcribe {wall - t_init:.2f} s) = {seconds / wall:.3f} audio-s/s "
+        f"({seconds / (wall - t_init):.3f} without init); decode steps greedy "
+        f"{greedy} + beam {beam}; int4 kernel launches {launches}; paged "
+        f"kernel launches {paged}; notes {len(notes)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    layers = bundle.cfg.num_decoder_layers
+    assert launches == layers * (greedy + beam) and launches > 0, (launches, greedy, beam)
+    assert paged == 0, paged
     return launches
 
 
@@ -343,27 +510,104 @@ def kernel_in_model():
     assert err < TOL_MODEL_FP32, err
 
 
-def where_time_goes(wav, tmp):
-    """Phase 5: the main path's stages on the host clock, each ended by a
-    synchronise, then a window of its decode steps under torch.profiler:
-    device busy time per step, the device's idle share, and the kernels
-    that take the device's time."""
+def flagship_in_model():
+    """Phase 4b: 64 bf16 decode steps of the full-width flagship with the
+    int4 kernel (int8c4p) against the plain dense int4 path (int8c4: the
+    same int4 values, interleaved), on the same memory and tokens; then
+    the tiny fp32 flagship on the card against the CPU."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.config.model import PERCEIVER_TF_MC13
+    from yourmt3_tpu_torch.data.audio_io import slice_padded_array
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+
+    kern = api.init_model("perceiver_tf_mc13", "mc13_full_plus_256", seed=0,
+                          **FLAGSHIP)
+    plain = dataclasses.replace(kern).with_decode_overrides(kv_quant="int8c4")
+    segs, _ = slice_padded_array(sine_song(16.0), kern.audio_cfg.input_frames)
+    batch = np.ascontiguousarray(segs[:8], np.float32)
+    steps, L = 64, kern.task_manager.max_token_length
+    with torch.no_grad():
+        mem = api._encode_batch(kern, batch)
+        assert mem.shape == (8, 13, 256, kern.cfg.d_model) and mem.dtype == torch.bfloat16
+        assert bool(torch.isfinite(mem).all())
+        S = mem.shape[0] * mem.shape[1]
+        ck, cp = kern.model.init_cross_kv(mem), plain.model.init_cross_kv(mem)
+        kk, kp = kern.model.empty_self_kvs(S, L), plain.model.empty_self_kvs(S, L)
+        tok = torch.zeros((S, 1), dtype=torch.long, device=mem.device)
+        ia.int4_cross_attention.launches = 0
+        err, agree = 0.0, 0.0
+        for pos in range(steps):
+            lk, kk = kern.model.decode_step(tok, pos, kk, ck)
+            lp, kp = plain.model.decode_step(tok, pos, kp, cp)
+            assert bool(torch.isfinite(lk).all())
+            err = max(err, (lk - lp).abs().max().item())
+            agree += (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+            tok = lp.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+    launches = ia.int4_cross_attention.launches
+    log(f"kernel in model: perceiver_tf_mc13 bf16, {steps} steps, S={S}, int8c4p "
+        f"(int4 kernel) vs int8c4 (plain dense int4): max|logit diff| {err:.4f} "
+        f"(tol {TOL_MODEL_BF16}), same argmax {agree / steps:.1%}, int4 kernel "
+        f"launches {launches}")
+    assert launches == steps * kern.cfg.num_decoder_layers, launches
+    assert err < TOL_MODEL_BF16, err
+    del kern, plain, ck, cp, kk, kp
+
+    # tiny fp32 flagship: card (kernel) against CPU (plain versions), the
+    # same weights; the decode takes the CPU's memory and int4 cross K/V on
+    # both, and each device quantizes its own int8 self cache
+    cfg = PERCEIVER_TF_MC13.replace(**TINY_FLAGSHIP)
+    kw = dict(model_cfg=cfg, task="mc13_full_plus_256", seed=0,
+              compute_dtype="float32", **FLAGSHIP)
+    gpu, cpu = api.init_model(**kw), api.init_model(device="cpu", **kw)
+
+    def to_gpu(x):
+        return type(x)(to_gpu(y) for y in x) if isinstance(x, (list, tuple)) else x.cuda()
+
+    with torch.no_grad():
+        enc = [b.model.encoder(b.frontend(torch.from_numpy(batch[:2]).to(b.device))).cpu()
+               for b in (gpu, cpu)]
+        err_enc = (enc[0] - enc[1]).abs().max().item()
+        mem = api._encode_batch(cpu, batch[:2])
+        cross_c = cpu.model.init_cross_kv(mem)
+        outs = []
+        for b, cross in ((gpu, to_gpu(cross_c)), (cpu, cross_c)):
+            kv = b.model.empty_self_kvs(26, 256)
+            tok = torch.zeros((26, 1), dtype=torch.long, device=b.device)
+            logits = []
+            for pos in range(32):
+                lg, kv = b.model.decode_step(tok, pos, kv, cross)
+                logits.append(lg.cpu())
+                tok = torch.full_like(tok, (pos * 37) % 500 + 3)
+            outs.append(torch.stack(logits))
+        err = (outs[0] - outs[1]).abs().max().item()
+    log(f"tiny flagship fp32, card vs CPU: encoder max|diff| {err_enc:.2e} (tol "
+        f"{TOL_MODEL_FP32}); 32 int8c4p decode steps (card: int4 kernel, CPU: "
+        f"plain) max|logit diff| {err:.2e} (tol {TOL_MODEL_INT8})")
+    assert err_enc < TOL_MODEL_FP32, err_enc
+    assert err < TOL_MODEL_INT8, err
+
+
+def where_time_goes(label, bundle, audio, first, kernel):
+    """Phase 5 for one path: its stages on the host clock, each ended by a
+    synchronise, then a window of 32 decode steps from position `first`
+    under torch.profiler: device busy time per step, the device's idle
+    share, and the kernels that take the device's time (`kernel` names the
+    path's own)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from yourmt3_tpu_torch import api
-    from yourmt3_tpu_torch.data.audio_io import load_audio_file, slice_padded_array
+    from yourmt3_tpu_torch.data.audio_io import slice_padded_array
     from yourmt3_tpu_torch.models import decoding
 
-    tm_len = 1024
-    bundle = api.init_model("t5_small", "mt3_full_plus", seed=0,
-                            **api.fast_decode_overrides(1, tm_len))
     tm, ac, model = bundle.task_manager, bundle.audio_cfg, bundle.model
-    assert tm.max_token_length == tm_len, tm.max_token_length
-    audio, _ = load_audio_file(wav, ac.sample_rate)
+    tm_len = tm.max_token_length
     segs, starts = slice_padded_array(audio, ac.input_frames)
     starts = (starts / ac.sample_rate).tolist()
     batch = np.zeros((8, ac.input_frames), np.float32)
-    batch[: len(segs)] = segs
+    batch[: len(segs)] = segs[:8]
+    segs, starts = segs[:8], starts[:8]
     prefix = tm.subtask_prefix_ids(None)
 
     def timed(fn):
@@ -383,15 +627,16 @@ def where_time_goes(wav, tmp):
         _, t_repair = timed(lambda: api._repair_error_segments(
             bundle, segs, seg_ids, starts, prefix, tm_len, 8, 2))
         steps = decoding.beam_decode.steps - steps
-        log(f"stages (host clock): frontend+encoder {t_enc:.3f} s, greedy "
+        log(f"stages {label} (host clock): frontend+encoder {t_enc:.3f} s, greedy "
             f"decode {t_greedy:.3f} s ({tm_len} steps, "
             f"{t_greedy / tm_len * 1e3:.2f} ms/step), detokenize {t_detok:.3f} s, "
             f"beam-2 repair {t_repair:.3f} s ({steps} steps)")
 
         cross = model.init_cross_kv(mem)
-        kv = model.empty_self_kvs(8, tm_len)
-        tok = torch.zeros((8, 1), dtype=torch.long, device=mem.device)
-        first, n = 496, 32  # around the middle of a full-length decode
+        S = mem.shape[0] * mem.shape[1]
+        kv = model.empty_self_kvs(S, tm_len)
+        tok = torch.zeros((S, 1), dtype=torch.long, device=mem.device)
+        n = 32
 
         def window():
             nonlocal kv
@@ -404,14 +649,15 @@ def where_time_goes(wav, tmp):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             window()
             torch.cuda.synchronize()
-    trace = os.path.join(tmp, "decode_trace.json")
+    trace = os.path.join(tempfile.gettempdir(), f"decode_trace_{os.getpid()}.json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
+    os.remove(trace)
     dev_events = [e for e in events
                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not dev_events:
-        log("decode step window: the profiler saw no device events; device "
+        log(f"decode window {label}: the profiler saw no device events; device "
             "busy time and idle share not measured")
         return
     by_name = {}
@@ -421,12 +667,11 @@ def where_time_goes(wav, tmp):
     busy_ms = sum(d for _, d in by_name.values()) / 1e3 / n
     wall_ms = wall * 1e3 / n
     kern_ms = sum(d for name, (_, d) in by_name.items()
-                  if "paged_decode_kernel" in name) / 1e3 / n
-    log(f"decode window pos {first}-{first + n - 1} (t5_small, S=8, int8 paged): "
-        f"host {wall_ms:.3f} ms/step; device busy {busy_ms:.3f} ms/step; "
-        f"device idle {1 - busy_ms / wall_ms:.1%}; "
-        f"{len(dev_events) / n:.0f} device ops/step; paged kernel "
-        f"{kern_ms:.4f} ms/step = {kern_ms / busy_ms:.1%} of device busy")
+                  if kernel in name) / 1e3 / n
+    log(f"decode window {label} pos {first}-{first + n - 1} (S={S}): host "
+        f"{wall_ms:.3f} ms/step; device busy {busy_ms:.3f} ms/step; device idle "
+        f"{1 - busy_ms / wall_ms:.1%}; {len(dev_events) / n:.0f} device ops/step; "
+        f"{kernel} {kern_ms:.4f} ms/step = {kern_ms / busy_ms:.1%} of device busy")
     top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:8]
     for name, (cnt, dur) in top:
         log(f"  {dur / 1e3 / n:.4f} ms/step  {cnt / n:5.1f}/step  {name[:90]}")
@@ -457,15 +702,26 @@ def main(argv=None) -> int:
     log(f"built {KERNEL_SOURCES} with nvcc in {time.perf_counter() - t0:.1f} s")
 
     worst = check_kernel(dev)
+    worst4 = check_int4(dev)
     rows = time_kernel(dev)
+    rows4 = time_int4(dev)
     if args.kernels_only:
         return 0
+    from yourmt3_tpu_torch import api
     with tempfile.TemporaryDirectory() as tmp:
         launches = main_path(tmp)
-        kernel_in_model()
-        where_time_goes(os.path.join(tmp, "song.wav"), tmp)
+        launches4 = flagship_path(tmp)
+    kernel_in_model()
+    flagship_in_model()
+    where_time_goes("t5_small", api.init_model(
+        "t5_small", "mt3_full_plus", seed=0,
+        **api.fast_decode_overrides(1, 1024)), sine_song(), 496,
+        "paged_decode_kernel")
+    where_time_goes("perceiver_tf_mc13", api.init_model(
+        "perceiver_tf_mc13", "mc13_full_plus_256", seed=0, **FLAGSHIP),
+        sine_song(16.0), 112, "int4_cross_kernel")
 
-    r = rows[1023]
+    r, r4 = rows[1023], rows4[104]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "yourmt3_tpu_torch/ops/csrc/paged_decode_attention.cu",
@@ -473,6 +729,13 @@ def main(argv=None) -> int:
         "launches": launches, "max_abs_err": worst["bf16"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+    }, {
+        "name": "int4_cross_attention", "route": "cuda",
+        "source": "yourmt3_tpu_torch/ops/csrc/int4_cross_attention.cu",
+        "replaces": "yourmt3_tpu/ops/pallas/decode_attention.py:441",
+        "launches": launches4, "max_abs_err": worst4["bf16"],
+        "ms": r4["ms"], "plain_ms": r4["plain_ms"], "bound_ms": r4["bound_ms"],
+        "bound_by": r4["bound_by"], "library_ms": r4["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

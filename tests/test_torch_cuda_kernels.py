@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from yourmt3_tpu_torch.ops import decode_attention as da
-from yourmt3_tpu_torch.ops.kv_quant import quantize_kv
+from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+from yourmt3_tpu_torch.ops.kv_quant import quantize_kv, quantize_kv4_crosspack
 
 pytestmark = pytest.mark.cuda
 
@@ -82,3 +83,45 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="q on"):
         da.paged_decode_attention(q, pages["k"].cpu(), pages["v"], 0)
     assert da.paged_decode_attention.launches == before
+
+
+def _int4_inputs(S, H, T, dk, gen, dev):
+    out = []
+    for _ in "kv":
+        packed, scale = quantize_kv4_crosspack(torch.randn(S, H, T, dk, generator=gen))
+        out += [packed.to(dev), scale.to(dev)]
+    return out  # k4, ks, v4, vs
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16], ids=["q32", "q16"])
+@pytest.mark.parametrize("S,H,T,dk", [(8, 6, 256, 64), (104, 6, 256, 64),
+                                      (4, 2, 128, 32), (3, 4, 200, 16),
+                                      (2, 2, 1000, 128)])
+def test_int4_cross_attention_matches_plain(dev, S, H, T, dk, qdt):
+    gen = torch.Generator().manual_seed(S + T + dk)
+    k4, ks, v4, vs = _int4_inputs(S, H, T, dk, gen, dev)
+    q = torch.randn(S, H, dk, generator=gen).to(dev, qdt)
+    before = ia.int4_cross_attention.launches
+    got = ia.int4_cross_attention(q, k4, ks, v4, vs)
+    assert ia.int4_cross_attention.launches == before + 1
+    want = ia.int4_cross_attention_plain(q, k4, ks, v4, vs)
+    torch.cuda.synchronize()
+    assert got.dtype == qdt and got.shape == (S, H, dk)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < TOL[qdt], err
+
+
+def test_int4_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    gen = torch.Generator().manual_seed(2)
+    k4, ks, v4, vs = _int4_inputs(2, 2, 64, 32, gen, dev)
+    q = torch.randn(2, 2, 32, generator=gen).to(dev)
+    before = ia.int4_cross_attention.launches
+    with pytest.raises(TypeError):
+        ia.int4_cross_attention(q.double(), k4, ks, v4, vs)
+    with pytest.raises(ValueError, match="shape"):
+        ia.int4_cross_attention(q[:, :1].contiguous(), k4, ks, v4, vs)
+    with pytest.raises(ValueError, match="q on"):
+        ia.int4_cross_attention(q, k4.cpu(), ks, v4, vs)
+    with pytest.raises(ValueError, match="dk"):
+        ia.int4_cross_attention(q[..., :24].contiguous(), k4, ks, v4, vs)
+    assert ia.int4_cross_attention.launches == before

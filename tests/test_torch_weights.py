@@ -25,14 +25,14 @@ def random_param_tree(preset: str, seed: int = 0):
     """The preset's JAX param tree (shapes from eval_shape), numpy-filled."""
     cfg = jax_model_config(preset)
     feats = jnp.zeros((1, 256, 512), jnp.float32)
-    ids = jnp.zeros((1, 1, 8), jnp.int32)
+    ids = jnp.zeros((1, cfg.num_channels, 8), jnp.int32)
     shapes = jax.eval_shape(JaxYMT3(cfg).init, jax.random.PRNGKey(0), feats, ids)
     rng = np.random.default_rng(seed)
     return jax.tree_util.tree_map(
         lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
 
 
-@pytest.mark.parametrize("preset", ["t5_tiny", "t5_small"])
+@pytest.mark.parametrize("preset", ["t5_tiny", "t5_small", "perceiver_tf_mc13"])
 def test_bridge_matches_reference_names_and_loads(preset):
     params = random_param_tree(preset)
     want = reference_style_state_dict(params, prefix="")
@@ -48,7 +48,7 @@ def test_bridge_matches_reference_names_and_loads(preset):
     assert sorted(model.state_dict()) == sorted(want)
 
 
-@pytest.mark.parametrize("preset", ["t5_tiny", "t5_small"])
+@pytest.mark.parametrize("preset", ["t5_tiny", "t5_small", "perceiver_tf_mc13"])
 def test_bridge_maps_back_through_the_jax_importer(preset):
     params = random_param_tree(preset, seed=1)
     port_sd = {k: v.numpy() for k, v in state_dict_from_jax(params).items()}

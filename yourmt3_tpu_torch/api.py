@@ -63,11 +63,9 @@ class ModelBundle:
     def with_decode_overrides(self, **overrides) -> "ModelBundle":
         """Switch the decode path (kv_quant / use_pallas_decode / ...) and
         keep the weights: the model is rebuilt with the new config and the
-        same parameters. Mutates and returns self."""
+        same parameters, and the decoder's side-car weights follow the new
+        weight_quant mode (ops/weight_quant.py). Mutates and returns self."""
         cfg = self.cfg.replace(**overrides)
-        if cfg.weight_quant != "none":
-            raise NotImplementedError(
-                "weight_quant is not ported yet (ROADMAP Queue 1 item 10)")
         model = YMT3(cfg, self.audio_cfg.num_feature_bins).to(self.device)
         model.load_state_dict(self.model.state_dict(), strict=True)
         self.model = model.eval()
@@ -91,7 +89,9 @@ def init_model(model_preset: str = "t5_small", task: str = "mt3_full_plus",
     """Build a randomly-initialized bundle on `device` (default: CUDA).
 
     The weights are drawn on the CPU from a torch.Generator seeded with
-    `seed`, so a seed gives the same model on every device."""
+    `seed`, so a seed gives the same model on every device. With
+    weight_quant="bf16" or "int8" the decoder also carries the side-car
+    weights derived from them."""
     dev = resolve_device(device)
     tm = TaskManager(task, audio_cfg)
     cfg = (model_cfg or get_model_config(model_preset)).replace(
@@ -99,9 +99,6 @@ def init_model(model_preset: str = "t5_small", task: str = "mt3_full_plus",
         num_channels=tm.num_decoding_channels,
         max_target_length=tm.max_token_length,
         **cfg_overrides)
-    if cfg.weight_quant != "none":
-        raise NotImplementedError(
-            "weight_quant is not ported yet (ROADMAP Queue 1 item 10)")
     model = YMT3(cfg, audio_cfg.num_feature_bins)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return ModelBundle(model.to(dev).eval(),

@@ -44,8 +44,8 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
                         "errors drop; 0 = raw greedy")
     p.add_argument("--weight-quant", default=None,
                    choices=("none", "bf16", "int8"),
-                   help="decoder-weight decode format (only 'none' is "
-                        "ported)")
+                   help="decoder-weight decode format: bf16, or int8 with "
+                        "per-output-channel scales (default: fp32 master)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random init when no checkpoint is given")
     p.add_argument("--cpu", action="store_true",

@@ -44,8 +44,9 @@ def fan_in_normal_(w: torch.Tensor, gen: torch.Generator,
 
 def lecun_truncated_normal_(w: torch.Tensor,
                             gen: torch.Generator) -> torch.Tensor:
-    """lecun_normal: truncated at ±2σ with σ corrected for the cut."""
-    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+    """lecun_normal: truncated at ±2σ with σ corrected for the cut; the
+    fan-in of an (out, in, ...) weight is everything but its first axis."""
+    std = math.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                                      generator=gen)
@@ -146,7 +147,14 @@ class RelativePositionBias(nn.Module):
 class QuantDense(nn.Module):
     """Bias-free linear layer in the compute dtype: x and the fp32 master
     weight are cast to `dtype` before the product (the reference's
-    promote-then-dot). Weight quantisation is not ported yet."""
+    promote-then-dot).
+
+    With a weight_quant mode set (ops/weight_quant.py) it reads the
+    side-car `weight_q` instead: bf16, or int8 with per-output-channel
+    `weight_scale`. The int8 product is rounded to `dtype`, then scaled in
+    fp32 and rounded again, as the reference does. The side-cars are
+    non-persistent buffers recomputed from the master whenever a state
+    dict is loaded (`reset_parameters` callers call `requantize`)."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype, device=None):
@@ -154,9 +162,38 @@ class QuantDense(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features, device=device))
         self.dtype = dtype
+        self.weight_quant = "none"
+
+    def set_weight_quant(self, mode: str) -> None:
+        self.weight_quant = mode
+        self.requantize()
+
+    @torch.no_grad()
+    def requantize(self) -> None:
+        from ..ops.weight_quant import quantize_int8
+        for name in ("weight_q", "weight_scale"):
+            if name in self._buffers:
+                del self._buffers[name]
+        if self.weight_quant == "bf16":
+            self.register_buffer("weight_q", self.weight.to(torch.bfloat16),
+                                 persistent=False)
+        elif self.weight_quant == "int8":
+            q, scale = quantize_int8(self.weight)
+            self.register_buffer("weight_q", q, persistent=False)
+            self.register_buffer("weight_scale", scale, persistent=False)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        if self.weight_quant != "none":
+            self.requantize()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        if self.weight_quant == "none":
+            return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        y = F.linear(x.to(self.dtype), self.weight_q.to(self.dtype))
+        if self.weight_quant == "int8":
+            y = (y.to(torch.float32) * self.weight_scale).to(self.dtype)
+        return y
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -12,7 +12,9 @@ Decoding uses explicit caches: `init_cross_kv` projects the encoder
 memory once per segment batch, `decode_step` runs one token for every
 stream and writes its K/V into the self caches in place. The paged
 self-attention paths hand the bucket table to the decode-attention kernel
-(ops/decode_attention.py), which builds the bias itself.
+(ops/decode_attention.py), which builds the bias itself; with
+kv_quant="int8c4p" the cross-attention runs through the int4 kernel
+(ops/int4_cross_attention.py).
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ from ..config.model import ModelConfig
 from ..ops.decode_attention import (dense_to_paged, paged_cache_update,
                                     paged_cross_attention,
                                     paged_decode_attention, paged_scale_update)
-from ..ops.kv_quant import int8_decode_attention, quantize_kv
+from ..ops.int4_cross_attention import int4_cross_attention
+from ..ops.kv_quant import (int4_decode_attention, int8_decode_attention,
+                            quantize_kv, quantize_kv4, quantize_kv4_crosspack)
 from .layers import (DTYPES, NEG_INF, FeedForward, MultiHeadAttention,
                      QuantDense, RMSNorm, RelativePositionBias,
                      dot_product_attention, relative_position_bucket,
@@ -34,8 +38,9 @@ from .layers import (DTYPES, NEG_INF, FeedForward, MultiHeadAttention,
 
 KV = Tuple[torch.Tensor, torch.Tensor]
 
-INT4_TODO = ("kv_quant={!r} (int4 K/V) is not ported yet: it comes with the "
-             "flagship slice (ROADMAP Queue 1 item 9 and Queue 2 kernel 2)")
+# kv_quant modes whose self cache is int8 ("int8c4"/"int8c4p" add int4
+# cross K/V, plain and through the kernel)
+INT8_SELF = ("int8", "int8c4", "int8c4p")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -163,9 +168,7 @@ class T5DecoderLayer(nn.Module):
             if not isinstance(step_bias, tuple):
                 step_bias = sa.group_bias(step_bias, 1)
         ck, cv = self_kv
-        if cfg.kv_quant in ("int4", "int8c4", "int8c4p"):
-            raise NotImplementedError(INT4_TODO.format(cfg.kv_quant))
-        if cfg.kv_quant == "int8" and cfg.use_pallas_decode:
+        if cfg.kv_quant in INT8_SELF and cfg.use_pallas_decode:
             # int8 paged: the kernel reads only the live int8 pages
             (kq, ksc), (vq, vsc) = ck, cv
             kq_s, ks_s = quantize_kv(k_step)
@@ -178,18 +181,21 @@ class T5DecoderLayer(nn.Module):
                 q, kq, vq, pos, rel_table=step_bias[1],
                 rel_max_distance=cfg.rel_attn_max_distance,
                 k_scale=ksc, v_scale=vsc, dist_buckets=step_bias[2])
-        elif cfg.kv_quant == "int8":
-            # dense int8: (values (S,H,L,dk) int8, scales (S,H,L) fp32)
-            kq_s, ks_s = quantize_kv(k_step)
-            vq_s, vs_s = quantize_kv(v_step)
+        elif cfg.kv_quant in INT8_SELF + ("int4",):
+            # dense int8 (values (S,H,L,dk) int8) or int4 (interleaved
+            # nibbles (S,H,L,dk/2) uint8), scales (S,H,L) fp32
+            quant, attend = ((quantize_kv4, int4_decode_attention)
+                             if cfg.kv_quant == "int4"
+                             else (quantize_kv, int8_decode_attention))
+            kq_s, ks_s = quant(k_step)
+            vq_s, vs_s = quant(v_step)
             ck[0][:, :, pos] = kq_s[:, :, 0]
             ck[1][:, :, pos] = ks_s[:, :, 0]
             cv[0][:, :, pos] = vq_s[:, :, 0]
             cv[1][:, :, pos] = vs_s[:, :, 0]
             n = kv_len or ck[0].shape[2]
-            att = int8_decode_attention(q, ck[0][:, :, :n], ck[1][:, :, :n],
-                                        cv[0][:, :, :n], cv[1][:, :, :n],
-                                        step_bias)
+            att = attend(q, ck[0][:, :, :n], ck[1][:, :, :n],
+                         cv[0][:, :, :n], cv[1][:, :, :n], step_bias)
         elif cfg.use_pallas_decode:
             # bf16/fp32 paged
             paged_cache_update(ck, k_step, pos)
@@ -214,7 +220,13 @@ class T5DecoderLayer(nn.Module):
             qc = ca.group_queries(qc)
         if isinstance(cross_kv[0], tuple):
             (ckq, cks), (cvq, cvs) = cross_kv
-            attc = int8_decode_attention(qc, ckq, cks, cvq, cvs, None)
+            if cfg.kv_quant == "int8c4p":
+                # split-half packed int4 through the kernel
+                attc = int4_cross_attention(qc, ckq, cks, cvq, cvs)
+            elif ckq.dtype == torch.uint8:
+                attc = int4_decode_attention(qc, ckq, cks, cvq, cvs, None)
+            else:
+                attc = int8_decode_attention(qc, ckq, cks, cvq, cvs, None)
         elif cross_kv[0].ndim == 5:
             # paged cross: one kernel pass over the static encoder KV
             T = cross_kv[0].shape[0] * cross_kv[0].shape[3]
@@ -265,8 +277,11 @@ class T5Decoder(nn.Module):
         cfg = self.cfg
         kvs = [blk.layer[1].EncDecAttention.project_kv(enc_out)
                for blk in self.block]
-        if cfg.kv_quant in ("int4", "int8c4", "int8c4p"):
-            raise NotImplementedError(INT4_TODO.format(cfg.kv_quant))
+        if cfg.kv_quant == "int8c4p":
+            return [(quantize_kv4_crosspack(k), quantize_kv4_crosspack(v))
+                    for k, v in kvs]
+        if cfg.kv_quant in ("int4", "int8c4"):
+            return [(quantize_kv4(k), quantize_kv4(v)) for k, v in kvs]
         if cfg.kv_quant == "int8":
             return [(quantize_kv(k), quantize_kv(v)) for k, v in kvs]
         if cfg.use_pallas_decode:

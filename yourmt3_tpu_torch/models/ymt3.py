@@ -15,41 +15,58 @@ from torch import nn
 
 from ..config.model import ModelConfig
 from ..ops.decode_attention import empty_paged_cache, empty_paged_scales
+from ..ops.weight_quant import quantize_decoder_weights
+from .conv_block import Conv2dSame
 from .layers import (FeedForward, MultiHeadAttention, QuantDense,
                      RelativePositionBias, lecun_truncated_normal_, normal_)
+from .perceiver_tf import PerceiverTFEncoder
 from .projection import EncoderProjection
-from .t5 import INT4_TODO, MultiChannelT5Decoder, T5Decoder, T5Encoder, compute_dtype
+from .t5 import INT8_SELF, MultiChannelT5Decoder, T5Decoder, T5Encoder, compute_dtype
 
 
 class YMT3(nn.Module):
     def __init__(self, cfg: ModelConfig, in_features: int = 512):
         super().__init__()
-        if cfg.encoder_type != "t5":
+        if cfg.encoder_type == "t5":
+            encoder = T5Encoder(cfg, in_features)
+        elif cfg.encoder_type == "perceiver-tf":
+            encoder = PerceiverTFEncoder(cfg)
+        else:
             raise NotImplementedError(
                 f"encoder_type={cfg.encoder_type!r} is not ported yet "
-                "(perceiver-tf: flagship slice, ROADMAP Queue 1 item 9; "
-                "conformer: item 16)")
+                "(ROADMAP Queue 1 item 16)")
         self.cfg = cfg
         self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
-        self.encoder = T5Encoder(cfg, in_features)
+        self.encoder = encoder
         self.projection = EncoderProjection(cfg)
         self.multi = cfg.decoder_type == "multi-t5" or cfg.num_channels > 1
         self.decoder = (MultiChannelT5Decoder if self.multi else T5Decoder)(cfg)
         self.lm_head = QuantDense(cfg.d_model, cfg.vocab_size, compute_dtype(cfg))
+        if cfg.weight_quant != "none":
+            quantize_decoder_weights(self, cfg.weight_quant)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        """Random init with the reference initialisers' distributions."""
+        """Random init with the reference initialisers' distributions:
+        lecun normal for dense and conv kernels, zero conv biases,
+        N(0, 0.02) for bias tables, latents and position tables."""
         for mod in self.modules():
             if isinstance(mod, QuantDense):
                 lecun_truncated_normal_(mod.weight, gen)
+            elif isinstance(mod, Conv2dSame):
+                lecun_truncated_normal_(mod.weight, gen)
+                nn.init.zeros_(mod.bias)
         for mod in self.modules():
             if isinstance(mod, (MultiHeadAttention, FeedForward)):
                 mod.reset_parameters(gen)
             elif isinstance(mod, RelativePositionBias):
                 normal_(mod.weight, 0.02, gen)
         normal_(self.shared.weight, 1.0, gen)
-        if hasattr(self.encoder, "pos_embed"):
-            normal_(self.encoder.pos_embed, 0.02, gen)
+        for name in ("pos_embed", "latent_array", "pos_emb"):
+            if hasattr(self.encoder, name):
+                normal_(getattr(self.encoder, name), 0.02, gen)
+        for mod in self.modules():
+            if isinstance(mod, QuantDense) and mod.weight_quant != "none":
+                mod.requantize()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -97,13 +114,20 @@ class YMT3(nn.Module):
         kvh = c.decoder_kv_heads or c.num_heads
         dt = self.dtype
         n = c.num_decoder_layers
-        if c.kv_quant in ("int4", "int8c4", "int8c4p"):
-            raise NotImplementedError(INT4_TODO.format(c.kv_quant))
+        if c.kv_quant == "int4":
+            # interleaved nibbles (S, H, L, dk/2) uint8 + fp32 row scales
+            vals = (batch_streams, kvh, max_len, c.d_kv // 2)
+            scls = (batch_streams, kvh, max_len)
+
+            def pair():
+                return (torch.zeros(vals, dtype=torch.uint8, device=device),
+                        torch.zeros(scls, dtype=torch.float32, device=device))
+            return [(pair(), pair()) for _ in range(n)]
         if c.use_pallas_decode:
             # pages of 64 for short decodes, 128 for long ones
             block = 64 if max_len <= 256 else 128
             padded = -(-max_len // block) * block
-            if c.kv_quant == "int8":
+            if c.kv_quant in INT8_SELF:
                 def pair():
                     return (empty_paged_cache(batch_streams, kvh, c.d_kv, padded,
                                               block, torch.int8, device),
@@ -115,7 +139,7 @@ class YMT3(nn.Module):
                      empty_paged_cache(batch_streams, kvh, c.d_kv, padded,
                                        block, dt, device))
                     for _ in range(n)]
-        if c.kv_quant == "int8":
+        if c.kv_quant in INT8_SELF:
             # zero scales make unwritten positions contribute 0 logits
             vals = (batch_streams, kvh, max_len, c.d_kv)
             scls = (batch_streams, kvh, max_len)
