@@ -6,12 +6,15 @@
 
 Phases:
   1. device and build: the card's name and power limit, then every CUDA
-     kernel of the two paths compiled from the sources in this checkout,
-     one nvcc per source, all started together;
+     kernel of the three paths and the launch probe compiled from the
+     sources in this checkout, one nvcc per source, all started together;
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes of its path, in every mode; timed with CUDA events over
-     CUDA-graph replays beside its plain version, the one PyTorch call
-     that computes the same function (library_ms) and its byte bound;
+     shapes of its path, in every mode; timed with CUDA events (over
+     CUDA-graph replays for the decode kernels) beside its plain version,
+     the one PyTorch call that computes the same function (library_ms)
+     and its bound. The fused log-mel kernel is held at B in {1, 8, 16};
+     the launch probe's own path is its launch-overhead measurement
+     (eager through ctypes, inside one CUDA graph, and torch's x + 1);
   3. the two main paths, each with every launch count set to 0 just
      before it and read just after:
      a. t5_small: the CLI transcribes a seeded ~6 s sine-mixture WAV at
@@ -28,7 +31,15 @@ Phases:
      the card against the same model on the CPU;
   5. where the time goes, for each path: its stages on the host clock,
      and a window of its decode steps under torch.profiler (device busy
-     time, idle share, the kernels that take the time).
+     time, idle share, the kernels that take the time);
+  6. training, slice 3: the full-width flagship with the fused log-mel
+     frontend (use_pallas=True), batch 16, about 20 steps of
+     trainer.train on one repeated batch of a synth set built by the
+     port's own builder; the kernel must launch once per step and the
+     loss must fall. Then a profiled window of 3 steps, a checkpoint
+     restored with load_checkpoint(kv_quant="int8c4p",
+     weight_quant="int8") that transcribes a 2 s song, and two steps of
+     cli.train at t5_small width.
 
 Any failure raises: nothing is caught and nothing falls back. The last
 line is {"ok": true, "device": {...}}; the line before it lists each
@@ -48,7 +59,8 @@ import time
 
 import numpy as np
 
-KERNEL_SOURCES = ["paged_decode_attention", "int4_cross_attention"]
+KERNEL_SOURCES = ["paged_decode_attention", "int4_cross_attention",
+                  "fused_logmel", "launch_probe"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 
@@ -78,6 +90,11 @@ FLAGSHIP = dict(kv_quant="int8c4p", weight_quant="int8")
 TINY_FLAGSHIP = dict(d_model=64, d_kv=16, num_heads=4, d_ff=128,
                      num_decoder_layers=2, ptf_d_latent=64, ptf_num_blocks=1,
                      conv_channels=8)
+# fused log-mel kernel vs plain version (both fp32, sums in another
+# order; inputs carry a noise floor, so no mel bin sits at the log offset)
+TOL_LOGMEL = 1e-3
+LOGMEL_BATCHES = (1, 8, 16)
+TRAIN_BATCH, TRAIN_STEPS, PROFILED_STEPS = 16, 20, 3
 
 
 def log(msg: str) -> None:
@@ -343,6 +360,164 @@ def time_int4(dev):
     return rows
 
 
+def events_ms(fn, iters: int) -> float:
+    """Device ms per call: `fn` issued eagerly `iters` times between two
+    CUDA events, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def logmel_audio(B, dev):
+    """(B, 32767) segments of a seeded sine mixture over a noise floor."""
+    import torch
+    from yourmt3_tpu_torch.config.audio import DEFAULT_AUDIO
+    from yourmt3_tpu_torch.data.audio_io import slice_padded_array
+    segs, _ = slice_padded_array(sine_song(2.048 * B + 1.0, seed=B),
+                                 DEFAULT_AUDIO.input_frames)
+    return torch.from_numpy(np.ascontiguousarray(segs[:B])).to(dev)
+
+
+def logmel_frontend(dev):
+    from yourmt3_tpu_torch.config.audio import DEFAULT_AUDIO
+    from yourmt3_tpu_torch.ops.frontend import SpectrogramFrontend
+    return SpectrogramFrontend.from_config(DEFAULT_AUDIO, use_pallas=True,
+                                           device=dev)
+
+
+def check_logmel(dev):
+    """The fused log-mel kernel against its plain version at full width
+    (32767 samples → 256 frames × 512 mels), B in {1, 8, 16}."""
+    import torch
+    from yourmt3_tpu_torch.ops import fused_logmel as fl
+    fe = logmel_frontend(dev)
+    worst = 0.0
+    for B in LOGMEL_BATCHES:
+        audio = logmel_audio(B, dev)
+        got = fe(audio)
+        want = fl.fused_logmel_plain(audio, fe.basis_cos, fe.basis_sin,
+                                     fe.mel_fb, fe.cfg)
+        torch.cuda.synchronize()
+        assert got.shape == (B, 256, 512) and bool(torch.isfinite(got).all())
+        err = (got - want).abs().max().item()
+        log(f"fused_logmel check B={B} (frames per thread "
+            f"{fl.frames_per_thread(B, 256, torch.cuda.get_device_properties(dev).multi_processor_count)}): "
+            f"max|err| {err:.3e} (tol {TOL_LOGMEL})")
+        assert err <= TOL_LOGMEL, (B, err)
+        worst = max(worst, err)
+    return worst
+
+
+def bound_logmel(B, cfg):
+    """(ms, "bytes" or "operations"): the DFT (cos and sin) and mel
+    products' fp32 multiply-adds; the audio, both bases, the filterbank
+    and the output each moved once."""
+    n_bins, T = cfg.n_fft // 2 + 1, cfg.num_frames
+    ops = B * (2 * 2 * T * cfg.n_fft * n_bins + 2 * T * n_bins * cfg.n_mels)
+    nbytes = 4 * (B * cfg.input_frames + 2 * cfg.n_fft * n_bins
+                  + n_bins * cfg.n_mels + B * T * cfg.n_mels)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_logmel(dev):
+    """Kernel, plain version and the cuFFT route (torch.stft with a
+    periodic Hann window, center=True, reflect; abs; mel product; log:
+    four calls, not one), each with CUDA events over 10 eager calls, at
+    B = 16 (training) and 8 (serving)."""
+    import torch
+    from yourmt3_tpu_torch.ops import fused_logmel as fl
+    fe = logmel_frontend(dev)
+    cfg = fe.cfg
+    packed = fl.pack_bases(fe.basis_cos, fe.basis_sin, fe.mel_fb)
+    win = torch.hann_window(cfg.n_fft, periodic=True, device=dev)
+    rows = {}
+    for B in (16, 8):
+        audio = logmel_audio(B, dev)
+        args = (audio, fe.basis_cos, fe.basis_sin, fe.mel_fb, cfg)
+
+        def library():
+            spec = torch.stft(audio, cfg.n_fft, hop_length=cfg.hop_length,
+                              window=win, center=True, pad_mode="reflect",
+                              return_complex=True)
+            return torch.log(torch.clamp(torch.matmul(
+                spec.abs().transpose(1, 2), fe.mel_fb), min=cfg.log_offset))
+
+        lib_err = (library() - fl.fused_logmel(*args, packed=packed)).abs().max().item()
+        b_ms, b_by = bound_logmel(B, cfg)
+        rows[B] = dict(ms=events_ms(lambda: fl.fused_logmel(*args, packed=packed), 10),
+                       plain_ms=events_ms(lambda: fl.fused_logmel_plain(*args), 10),
+                       library_ms=events_ms(library, 10), bound_ms=b_ms,
+                       bound_by=b_by)
+        r = rows[B]
+        log(f"time fused_logmel B={B}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library (cuFFT route: stft, abs, mel "
+            f"matmul, log) {r['library_ms']:.4f} ms (max|diff| to the kernel "
+            f"{lib_err:.2e}), bound ({b_by}, fp32 {FP32_FLOPS / 1e12:.0f} "
+            f"TFLOP/s outside the tensor cores) {b_ms:.4f} ms = "
+            f"{b_ms / r['ms']:.1%} of the kernel's time")
+    return rows
+
+
+def probe_path(dev):
+    """The launch probe: exact against its plain version, then its own
+    path, the launch-overhead measurement, with its count set to 0 just
+    before and read just after. Each launch's output feeds the next
+    launch's input: eager through ctypes (device clock between events,
+    and host clock), inside one CUDA graph, and torch's x + 1 both ways."""
+    import torch
+    from yourmt3_tpu_torch.ops import launch_probe as lp
+    x0 = torch.randn(8, 128, generator=torch.Generator().manual_seed(5)).to(dev)
+    got = lp.launch_probe(x0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lp.launch_probe_plain(x0))
+    n, chain_len = 2000, 100
+
+    def chain(fn, k):
+        x = torch.zeros(8, 128, device=dev)
+        for _ in range(k):
+            x = fn(x)
+        return x
+
+    lp.launch_probe.launches = 0
+    out = {}
+    for name, fn in (("probe", lp.launch_probe), ("torch", lp.launch_probe_plain)):
+        end = chain(fn, n)
+        torch.cuda.synchronize()
+        assert torch.equal(end, torch.full_like(end, float(n))), name
+        t = time.perf_counter()
+        chain(fn, n)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t) / n * 1e3
+        out[name] = dict(eager_ms=events_ms(lambda: chain(fn, n), 1) / n,
+                         host_ms=host,
+                         graph_ms=graph_ms(lambda: chain(fn, chain_len), chain_len,
+                                           replays=20))
+    launches = lp.launch_probe.launches
+    p, t = out["probe"], out["torch"]
+    log(f"launch probe (8x128 fp32 x + 1, chained): kernel eager "
+        f"{p['eager_ms'] * 1e3:.2f} us/launch on the device clock "
+        f"({p['host_ms'] * 1e3:.2f} us on the host clock), in a CUDA graph "
+        f"{p['graph_ms'] * 1e3:.2f} us/launch; torch x + 1 eager "
+        f"{t['eager_ms'] * 1e3:.2f} us ({t['host_ms'] * 1e3:.2f} us host), in a "
+        f"graph {t['graph_ms'] * 1e3:.2f} us; probe launches {launches}")
+    assert launches > 0
+    nbytes = 2 * 8 * 128 * 4
+    return dict(launches=launches, ms=p["eager_ms"], plain_ms=t["eager_ms"],
+                library_ms=t["eager_ms"], graph_ms=p["graph_ms"],
+                torch_graph_ms=t["graph_ms"],
+                bound_ms=max(nbytes / HBM_BYTES_PER_S, 1024 / FP32_FLOPS) * 1e3,
+                bound_by="bytes")
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4
 # ---------------------------------------------------------------------------
@@ -398,9 +573,13 @@ def reset_counts():
     """Every kernel's launch count and the decode step counts to 0."""
     from yourmt3_tpu_torch.models import decoding
     from yourmt3_tpu_torch.ops import decode_attention as da
+    from yourmt3_tpu_torch.ops import fused_logmel as fl
     from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    from yourmt3_tpu_torch.ops import launch_probe as lp
     da.paged_decode_attention.launches = 0
     ia.int4_cross_attention.launches = 0
+    fl.fused_logmel.launches = 0
+    lp.launch_probe.launches = 0
     decoding.greedy_decode.steps = 0
     decoding.beam_decode.steps = 0
 
@@ -589,6 +768,28 @@ def flagship_in_model():
     assert err < TOL_MODEL_INT8, err
 
 
+def device_profile(fn):
+    """Run `fn` under torch.profiler; → (device events, {name: (count,
+    total µs)}) from its chrome trace (kernels, copies, memsets)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    trace = os.path.join(tempfile.gettempdir(), f"trace_{os.getpid()}.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(trace)
+    dev_events = [e for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    by_name = {}
+    for e in dev_events:
+        cnt, dur = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (cnt + 1, dur + e["dur"])
+    return dev_events, by_name
+
+
 def where_time_goes(label, bundle, audio, first, kernel):
     """Phase 5 for one path: its stages on the host clock, each ended by a
     synchronise, then a window of 32 decode steps from position `first`
@@ -596,7 +797,6 @@ def where_time_goes(label, bundle, audio, first, kernel):
     share, and the kernels that take the device's time (`kernel` names the
     path's own)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from yourmt3_tpu_torch import api
     from yourmt3_tpu_torch.data.audio_io import slice_padded_array
     from yourmt3_tpu_torch.models import decoding
@@ -646,24 +846,11 @@ def where_time_goes(label, bundle, audio, first, kernel):
 
         window()  # warm-up
         _, wall = timed(window)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            window()
-            torch.cuda.synchronize()
-    trace = os.path.join(tempfile.gettempdir(), f"decode_trace_{os.getpid()}.json")
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = json.load(f)["traceEvents"]
-    os.remove(trace)
-    dev_events = [e for e in events
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        dev_events, by_name = device_profile(window)
     if not dev_events:
         log(f"decode window {label}: the profiler saw no device events; device "
             "busy time and idle share not measured")
         return
-    by_name = {}
-    for e in dev_events:
-        cnt, dur = by_name.get(e["name"], (0, 0.0))
-        by_name[e["name"]] = (cnt + 1, dur + e["dur"])
     busy_ms = sum(d for _, d in by_name.values()) / 1e3 / n
     wall_ms = wall * 1e3 / n
     kern_ms = sum(d for name, (_, d) in by_name.items()
@@ -675,6 +862,204 @@ def where_time_goes(label, bundle, audio, first, kernel):
     top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:8]
     for name, (cnt, dur) in top:
         log(f"  {dur / 1e3 / n:.4f} ms/step  {cnt / n:5.1f}/step  {name[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+class StepLog:
+    """A trainer logger that keeps every logged step's metrics and time."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, step, metrics, prefix=""):
+        self.records.append((step, time.perf_counter(), dict(metrics)))
+
+    def close(self):
+        pass
+
+
+def build_synth_sets(root):
+    """The flagship's synthetic multi-instrument set (preset synth_mc) and
+    the smoke set (synth_smoke), built by the port's copy of the builder."""
+    from yourmt3_tpu_torch.data.preprocess.synth import build_synth_dataset
+    build_synth_dataset(root, n_tracks=4, duration=8.0, splits=("train",),
+                        programs=(0, 24, 32, 40, 56, 73), seed=0,
+                        dataset_name="synthmc")
+    build_synth_dataset(root, n_tracks=2, duration=6.0, splits=("train",), seed=1)
+
+
+def train_path(tmp):
+    """Phase 6: the full-width flagship trains through trainer.train with
+    the fused log-mel frontend; → the kernel's launches and the numbers."""
+    import itertools
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.config.data_presets import get_data_preset
+    from yourmt3_tpu_torch.data.dataset_train import TrainDataset
+    from yourmt3_tpu_torch.ops import decode_attention as da
+    from yourmt3_tpu_torch.ops import fused_logmel as fl
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    from yourmt3_tpu_torch.ops.frontend import SpectrogramFrontend
+    from yourmt3_tpu_torch.train.trainer import train
+
+    data = os.path.join(tmp, "data")
+    os.environ["YMT3_DATA_HOME"] = data
+    t0 = time.perf_counter()
+    build_synth_sets(data)
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bundle = api.init_model("perceiver_tf_mc13", "mc13_full_plus_256", seed=0)
+    bundle.frontend = SpectrogramFrontend.from_config(
+        bundle.audio_cfg, use_pallas=True, device=bundle.device)
+    t_init = time.perf_counter() - t0
+    ds = TrainDataset(get_data_preset("synth_mc").index_files("train"),
+                      bundle.task_manager, bundle.audio_cfg, seed=0)
+    batch = ds.make_batch(TRAIN_BATCH)
+    tokens = int((batch["labels"] != 0).sum())
+    head0 = bundle.model.lm_head.weight.detach().clone()
+    steps = StepLog()
+    ckpt_dir = os.path.join(tmp, "flagship_run")
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train(bundle, itertools.repeat(batch), total_steps=TRAIN_STEPS, log_every=1,
+          ckpt_every=TRAIN_STEPS, ckpt_dir=ckpt_dir, base_lr=1e-3,
+          warmup_steps=2, seed=0, logger=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fl.fused_logmel.launches
+    others = (da.paged_decode_attention.launches, ia.int4_cross_attention.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+
+    losses = [m["loss"] for _, _, m in steps.records]
+    gnorms = [m["grad_norm"] for _, _, m in steps.records]
+    (_, t_first, _), (_, t_last, _) = steps.records[0], steps.records[-1]
+    sps = (len(steps.records) - 1) / (t_last - t_first)
+    log(f"train perceiver_tf_mc13 (bf16 compute, fp32 master, batch "
+        f"{TRAIN_BATCH}, fused log-mel frontend, one repeated synth batch of "
+        f"{tokens} target tokens): {TRAIN_STEPS} steps in {wall:.2f} s (synth "
+        f"set {t_data:.2f} s, init {t_init:.2f} s before); steady "
+        f"{sps:.3f} steps/s = {sps * tokens:.0f} target tokens/s (steps "
+        f"2-{TRAIN_STEPS}); fused_logmel launches {launches}; peak device "
+        f"memory {peak:.1f} MiB")
+    log(f"  loss by step: {' '.join(f'{x:.3f}' for x in losses)}")
+    log(f"  grad_norm by step: {' '.join(f'{x:.2f}' for x in gnorms)}")
+    assert launches == TRAIN_STEPS, launches
+    assert others == (0, 0), others
+    assert all(np.isfinite(losses)) and all(np.isfinite(gnorms))
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]), losses
+    assert not torch.equal(bundle.model.lm_head.weight, head0)
+
+    serve_from_checkpoint(tmp, os.path.join(ckpt_dir, "last"), bundle)
+    profile_train_steps(bundle, batch)
+    del bundle
+    torch.cuda.empty_cache()
+    cli_train_steps(tmp)
+    return dict(launches=launches, steps_per_s=sps, tokens_per_s=sps * tokens,
+                peak_mib=peak, loss_first=losses[0], loss_last=losses[-1])
+
+
+def serve_from_checkpoint(tmp, ckpt, trained):
+    """Restore the trained checkpoint with the flagship's decode settings;
+    the int8 side-car weights must be those of the trained masters; then
+    transcribe a 2 s song through the int4 kernel."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.data.audio_io import write_wav
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    from yourmt3_tpu_torch.ops.weight_quant import quantize_int8
+    from yourmt3_tpu_torch.tokens.midi_io import midi2note
+
+    t0 = time.perf_counter()
+    served = api.load_checkpoint(ckpt, **FLAGSHIP)
+    t_load = time.perf_counter() - t0
+    head, master = served.model.lm_head, trained.model.lm_head.weight
+    q, scale = quantize_int8(master)
+    assert torch.equal(head.weight, master)
+    assert torch.equal(head.weight_q, q) and torch.equal(head.weight_scale, scale)
+    wav = os.path.join(tmp, "served.wav")
+    write_wav(wav, sine_song(2.0, seed=3), 16000)
+    ia.int4_cross_attention.launches = 0
+    t0 = time.perf_counter()
+    out = api.transcribe(served, wav, os.path.join(tmp, "served.mid"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ia.int4_cross_attention.launches
+    notes = midi2note(out)
+    log(f"served the trained checkpoint (load_checkpoint with int8c4p K/V, "
+        f"int8 weights rebuilt from the trained masters, {t_load:.2f} s): 2 s "
+        f"song in {wall:.2f} s, int4 kernel launches {launches}, notes "
+        f"{len(notes)}")
+    assert os.path.exists(out) and launches > 0
+
+
+def profile_train_steps(bundle, batch):
+    """A window of PROFILED_STEPS train steps (after one warm-up): host
+    time per step, the device's busy time and idle share, top ops."""
+    import torch
+    from yourmt3_tpu_torch.ops.specaugment import make_augment_fn
+    from yourmt3_tpu_torch.train.optim import make_optimizer
+    from yourmt3_tpu_torch.train.train_step import create_train_state, make_train_step
+    model = bundle.model
+    tx = make_optimizer("adamw", 1e-4, "constant")
+    step_fn = make_train_step(model, bundle.frontend, tx, augment_fn=make_augment_fn())
+    state = [create_train_state(model, tx)]
+    gen = torch.Generator(device=bundle.device).manual_seed(1)
+
+    def window():
+        for _ in range(PROFILED_STEPS):
+            state[0], metrics = step_fn(state[0], batch, gen)
+        return metrics
+
+    window()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    dev_events, by_name = device_profile(window)
+    model.eval()
+    if not dev_events:
+        log("train window: the profiler saw no device events; device busy "
+            "time and idle share not measured")
+        return
+    busy_ms = sum(d for _, d in by_name.values()) / 1e3 / PROFILED_STEPS
+    logmel_ms = sum(d for name, (_, d) in by_name.items()
+                    if "fused_logmel" in name) / 1e3 / PROFILED_STEPS
+    log(f"train window ({PROFILED_STEPS} steps, batch {TRAIN_BATCH}): host "
+        f"{host_ms:.2f} ms/step; device busy {busy_ms:.2f} ms/step; device "
+        f"idle {1 - busy_ms / host_ms:.1%}; {len(dev_events) / PROFILED_STEPS:.0f} "
+        f"device ops/step; fused_logmel {logmel_ms:.3f} ms/step = "
+        f"{logmel_ms / busy_ms:.1%} of device busy")
+    top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:10]
+    for name, (cnt, dur) in top:
+        log(f"  {dur / 1e3 / PROFILED_STEPS:.3f} ms/step  "
+            f"{cnt / PROFILED_STEPS:6.1f}/step  {name[:90]}")
+
+
+def cli_train_steps(tmp):
+    """Two steps of `cli.train` at t5_small width on the smoke synth set."""
+    from yourmt3_tpu_torch.cli import train as cli_train
+    from yourmt3_tpu_torch.train.checkpoint import restore_opt_state
+    t0 = time.perf_counter()
+    run = cli_train.main(["smoke", "-d", "synth_smoke", "-m", "t5_small",
+                          "-b", "16", "-s", "2", "--warmup-steps", "1",
+                          "--log-every", "1", "--ckpt-every", "2",
+                          "--num-workers", "1",
+                          "--ckpt-dir", os.path.join(tmp, "cli_run")])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(run, "smoke_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    log(f"cli.train t5_small, batch 16, 2 steps in {wall:.2f} s (incl. init "
+        f"and data): losses {[round(r['loss'], 4) for r in recs]}")
+    assert [r["step"] for r in recs] == [1, 2]
+    assert all(np.isfinite(r["loss"]) for r in recs)
+    assert restore_opt_state(os.path.join(run, "last"))["step"] == 2
 
 
 def main(argv=None) -> int:
@@ -703,14 +1088,18 @@ def main(argv=None) -> int:
 
     worst = check_kernel(dev)
     worst4 = check_int4(dev)
+    worst_mel = check_logmel(dev)
     rows = time_kernel(dev)
     rows4 = time_int4(dev)
+    rows_mel = time_logmel(dev)
+    probe = probe_path(dev)
     if args.kernels_only:
         return 0
     from yourmt3_tpu_torch import api
     with tempfile.TemporaryDirectory() as tmp:
         launches = main_path(tmp)
         launches4 = flagship_path(tmp)
+        trained = train_path(tmp)
     kernel_in_model()
     flagship_in_model()
     where_time_goes("t5_small", api.init_model(
@@ -721,7 +1110,7 @@ def main(argv=None) -> int:
         "perceiver_tf_mc13", "mc13_full_plus_256", seed=0, **FLAGSHIP),
         sine_song(16.0), 112, "int4_cross_kernel")
 
-    r, r4 = rows[1023], rows4[104]
+    r, r4, rm = rows[1023], rows4[104], rows_mel[TRAIN_BATCH]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "yourmt3_tpu_torch/ops/csrc/paged_decode_attention.cu",
@@ -736,6 +1125,21 @@ def main(argv=None) -> int:
         "launches": launches4, "max_abs_err": worst4["bf16"],
         "ms": r4["ms"], "plain_ms": r4["plain_ms"], "bound_ms": r4["bound_ms"],
         "bound_by": r4["bound_by"], "library_ms": r4["library_ms"],
+    }, {
+        "name": "fused_logmel", "route": "cuda",
+        "source": "yourmt3_tpu_torch/ops/csrc/fused_logmel.cu",
+        "replaces": "yourmt3_tpu/ops/pallas/frontend_kernel.py:66",
+        "launches": trained["launches"], "max_abs_err": worst_mel,
+        "ms": rm["ms"], "plain_ms": rm["plain_ms"], "bound_ms": rm["bound_ms"],
+        "bound_by": rm["bound_by"], "library_ms": rm["library_ms"],
+    }, {
+        "name": "launch_probe", "route": "cuda",
+        "source": "yourmt3_tpu_torch/ops/csrc/launch_probe.cu",
+        "replaces": "scripts/bench_kernels.py:61",
+        "launches": probe["launches"], "max_abs_err": 0.0,
+        "ms": probe["ms"], "plain_ms": probe["plain_ms"],
+        "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
+        "library_ms": probe["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

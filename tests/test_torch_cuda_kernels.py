@@ -125,3 +125,78 @@ def test_int4_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="dk"):
         ia.int4_cross_attention(q[..., :24].contiguous(), k4, ks, v4, vs)
     assert ia.int4_cross_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# fused log-mel frontend and the launch probe
+
+def _frontend(dev, **cfg):
+    from yourmt3_tpu_torch.config.audio import AudioConfig
+    from yourmt3_tpu_torch.ops.frontend import SpectrogramFrontend
+    return SpectrogramFrontend.from_config(AudioConfig(**cfg), use_pallas=True,
+                                           device=dev)
+
+
+def _song(B, n, seed):
+    """Sine mixtures over a noise floor (keeps mel bins above the log offset)."""
+    gen = torch.Generator().manual_seed(seed)
+    t = torch.arange(n) / 16000.0
+    f0 = 110.0 + 770.0 * torch.rand(B, 4, 1, generator=gen)
+    audio = 0.2 * torch.sin(2 * torch.pi * f0 * t).sum(1)
+    return (audio + 0.02 * torch.randn(B, n, generator=gen)).float()
+
+
+# B in {1, 8, 16} at the default config (T = 256 frames: every tile size
+# divides it); input_frames 32000 gives T = 250 and 4095 gives T = 32 with
+# n_fft 512, so the last frame tile runs past T
+@pytest.mark.parametrize("B,cfg", [
+    (1, {}), (8, {}), (16, {}), (8, {"input_frames": 32000}),
+    (3, {"input_frames": 4095, "n_fft": 512, "n_mels": 128}),
+    (2, {"power": 2.0}),
+], ids=["B1", "B8", "B16", "B8-T250", "B3-nfft512", "B2-power2"])
+def test_fused_logmel_matches_plain(dev, B, cfg):
+    from yourmt3_tpu_torch.ops import fused_logmel as fl
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fe = _frontend(dev, **cfg)
+    audio = _song(B, fe.cfg.input_frames, B).to(dev)
+    before = fl.fused_logmel.launches
+    got = fe(audio)
+    assert fl.fused_logmel.launches == before + 1
+    want = fl.fused_logmel_plain(audio, fe.basis_cos, fe.basis_sin, fe.mel_fb, fe.cfg)
+    torch.cuda.synchronize()
+    assert got.shape == (B, fe.cfg.num_frames, fe.cfg.n_mels)
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs().max().item()
+    assert err < 1e-3, err
+
+
+def test_fused_logmel_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from yourmt3_tpu_torch.ops import fused_logmel as fl
+    fe = _frontend(dev)
+    audio = _song(2, fe.cfg.input_frames, 0).to(dev)
+    args = (fe.basis_cos, fe.basis_sin, fe.mel_fb, fe.cfg)
+    before = fl.fused_logmel.launches
+    with pytest.raises(TypeError):
+        fl.fused_logmel(audio.double(), *args)
+    with pytest.raises(ValueError, match="audio must be"):
+        fl.fused_logmel(audio[:, :1000].contiguous(), *args)
+    with pytest.raises(ValueError, match="n_mels"):
+        fl.fused_logmel(audio, fe.basis_cos, fe.basis_sin, fe.mel_fb[:, :100], fe.cfg)
+    with pytest.raises(ValueError, match="q on|is on"):
+        fl.fused_logmel(audio, fe.basis_cos.cpu(), *args[1:])
+    assert fl.fused_logmel.launches == before
+
+
+def test_launch_probe_adds_one_exactly(dev):
+    from yourmt3_tpu_torch.ops import launch_probe as lp
+    x = torch.randn(8, 128, generator=torch.Generator().manual_seed(0)).to(dev)
+    before = lp.launch_probe.launches
+    y = x
+    for _ in range(5):
+        y = lp.launch_probe(y)
+    assert lp.launch_probe.launches == before + 5
+    torch.cuda.synchronize()
+    assert torch.equal(y, lp.launch_probe_plain(lp.launch_probe_plain(
+        lp.launch_probe_plain(lp.launch_probe_plain(lp.launch_probe_plain(x))))))
+    with pytest.raises(ValueError, match="shape"):
+        lp.launch_probe(torch.zeros(4, 128, device=dev))

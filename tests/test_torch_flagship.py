@@ -382,3 +382,27 @@ def test_full_width_flagship_builds_and_steps():
                                   kv, cross)
     assert logits.shape == (13, b.cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
+
+
+def test_projection_of_jax_encoder_output_matches_jax_memory(bundles, song):
+    """Where the memory's one-ulp differences come from: fed the same
+    Perceiver-TF output, the port's bf16 group projection and JAX's agree
+    in all but a few entries (under 0.05 %), each within one bf16 ulp. The
+    ~0.5 % that differ end to end come from the bf16 cast of Perceiver
+    outputs that differ by up to ~4e-5; JAX's own jitted and eager
+    encoders differ by ~2e-6, which alone moves ~0.1 % of the entries."""
+    jb, pb = bundles
+    feats = jb.frontend(jnp.asarray(song[0]))
+    enc_j = jb.model.apply(jb.params, feats, method=lambda m, f: m.encoder(f))
+    mem_j = jb.model.apply(jb.params, enc_j, method=lambda m, e: m.projection(e))
+    with torch.no_grad():
+        mem_p = pb.model.projection(_to_torch(enc_j))
+    assert mem_p.dtype == torch.bfloat16 and mem_j.dtype == jnp.bfloat16
+    assert mem_p.shape == mem_j.shape == (BATCH, 13, 256, TINY["d_model"])
+    a, b = _to_torch(mem_j).numpy(), mem_p.float().numpy()
+    mag = np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0)
+    ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
+    assert (np.abs(a - b) <= ulp).all()
+    differ = (a != b).mean()
+    print(f"memory from JAX's encoder output: {differ:.4%} of entries differ")
+    assert differ < 5e-4, differ

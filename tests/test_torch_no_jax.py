@@ -41,6 +41,7 @@ def test_no_jax_imports_anywhere_in_the_port():
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.cli import train as cli_train
     from yourmt3_tpu_torch.cli import transcribe as cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -50,20 +51,32 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     wav.write_bytes(b"")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main([str(wav), "-m", "t5_tiny", "-o", str(tmp_path)])
+    monkeypatch.setenv("YMT3_DATA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_train.main(["exp", "-m", "t5_tiny", "--ckpt-dir", str(tmp_path)])
 
 
 @pytest.mark.parametrize("flag", ["-ckpt", "--url"])
 def test_cli_rejects_unported_inputs(tmp_path, flag):
+    """--url is not ported; -ckpt is, and a directory that holds no
+    checkpoint is refused."""
     from yourmt3_tpu_torch.cli import transcribe as cli
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["a.wav", flag, str(tmp_path)])
+    if flag == "--url":
+        with pytest.raises(SystemExit, match="not yet ported"):
+            cli.main(["a.wav", flag, str(tmp_path)])
+    else:
+        with pytest.raises(FileNotFoundError, match="no checkpoint"):
+            cli.main(["a.wav", flag, str(tmp_path)])
 
 
 def test_unported_options_raise():
     """What the port does not carry yet raises, naming its ROADMAP item:
     the MoE flagship, the conformer encoder, the non-identity projections
-    of the T5 encoder and the rope/alibi Perceiver positions."""
+    of the T5 encoder, the rope/alibi Perceiver positions, the
+    D-Adaptation optimizer and data-parallel training."""
     from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.train.optim import make_optimizer
+    from yourmt3_tpu_torch.train.trainer import train
     cases = [("perceiver_tf_mc13_moe", "mc13_full_plus_256", {}),
              ("conformer_small", "mt3_full_plus_256", {}),
              ("t5_tiny", "mt3_full_plus_256", {"proj_type": "mlp"}),
@@ -72,3 +85,8 @@ def test_unported_options_raise():
     for preset, task, ov in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.init_model(preset, task, device="cpu", **ov)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_optimizer("dadapt_adam")
+    bundle = api.init_model("t5_tiny", "mt3_full_plus_256", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train(bundle, iter(()), n_data_shards=2)

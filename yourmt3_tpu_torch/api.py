@@ -7,9 +7,9 @@ shape.
 
 The entry points run on the CUDA device by default and raise when there
 is none; the CPU is used only when the caller passes device="cpu".
-Checkpoint loading waits for the port's checkpoint format (ROADMAP
-Queue 1 item 13): a bundle gets its weights from `init_model` or from
-`weights.state_dict_from_jax`.
+A bundle gets its weights from `init_model` (random, from a seed), from
+`load_checkpoint` (the port's checkpoint format, train/checkpoint.py) or
+from `weights.state_dict_from_jax`.
 """
 
 from __future__ import annotations
@@ -103,6 +103,21 @@ def init_model(model_preset: str = "t5_small", task: str = "mt3_full_plus",
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return ModelBundle(model.to(dev).eval(),
                        SpectrogramFrontend(audio_cfg).to(dev), tm, audio_cfg)
+
+
+def load_checkpoint(path: str, model_preset: Optional[str] = None,
+                    task: Optional[str] = None,
+                    audio_cfg: Optional[AudioConfig] = None, device=None,
+                    **cfg_overrides) -> ModelBundle:
+    """Restore a bundle from a checkpoint directory written by
+    train/checkpoint.py (its metadata carries the preset, the task and the
+    full audio and model configs; explicit arguments win). cfg_overrides
+    pass decode-time ModelConfig fields through, e.g. kv_quant="int8c4p",
+    weight_quant="int8": the side-car weights are built from the restored
+    masters."""
+    from .train.checkpoint import restore_bundle
+    return restore_bundle(path, model_preset=model_preset, task=task,
+                          audio_cfg=audio_cfg, device=device, **cfg_overrides)
 
 
 # ---------------------------------------------------------------------------

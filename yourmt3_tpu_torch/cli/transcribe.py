@@ -2,8 +2,9 @@
 
     python -m yourmt3_tpu_torch.cli.transcribe song.wav -o out/ --decode-path fast
 
-Runs on the CUDA device unless --cpu is given. Without a checkpoint the
-model is randomly initialized from --seed (a smoke run).
+Runs on the CUDA device unless --cpu is given. -ckpt restores a
+checkpoint written by the port's trainer; without one the model is
+randomly initialized from --seed (a smoke run).
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
                    help="YouTube URL (not ported: it needs network access "
                         "and yt-dlp)")
     p.add_argument("-ckpt", "--checkpoint", default=None,
-                   help="checkpoint (not ported yet); omit for a randomly "
-                        "initialized model (smoke only)")
+                   help="checkpoint dir written by the port's trainer; omit "
+                        "for a randomly initialized model (smoke only)")
     p.add_argument("-m", "--model", default="t5_small")
     p.add_argument("-t", "--task", default="mt3_full_plus")
     p.add_argument("-o", "--output-dir", default=".")
@@ -55,22 +56,27 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     if args.url:
         raise SystemExit("--url is not yet ported (ROADMAP Queue 1 item 18): "
                          "pass a local audio file instead")
-    if args.checkpoint:
-        raise SystemExit("-ckpt/--checkpoint is not yet ported: the port's "
-                         "checkpoint format is ROADMAP Queue 1 item 13")
     if not args.inputs:
         raise SystemExit("no input files")
 
-    from ..api import fast_decode_overrides, init_model, transcribe
+    from ..api import (fast_decode_overrides, init_model, load_checkpoint,
+                       transcribe)
     from ..tokens.task_manager import TaskManager
+    from ..train.checkpoint import read_meta
 
-    tm = TaskManager(args.task)
+    device = "cpu" if args.cpu else None
+    task = read_meta(args.checkpoint).get("task", args.task) if args.checkpoint \
+        else args.task
+    tm = TaskManager(task)
     ov = (fast_decode_overrides(tm.num_decoding_channels, tm.max_token_length)
           if args.decode_path == "fast" else {})
     if args.weight_quant:
         ov["weight_quant"] = args.weight_quant
-    bundle = init_model(args.model, args.task, seed=args.seed,
-                        device="cpu" if args.cpu else None, **ov)
+    if args.checkpoint:
+        bundle = load_checkpoint(args.checkpoint, device=device, **ov)
+    else:
+        bundle = init_model(args.model, args.task, seed=args.seed,
+                            device=device, **ov)
     os.makedirs(args.output_dir, exist_ok=True)
     outs = []
     for path in args.inputs:

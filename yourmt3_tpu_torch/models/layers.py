@@ -285,11 +285,39 @@ ACTIVATIONS = {
 }
 
 
+class Dropout(nn.Module):
+    """Dropout with flax semantics, driven by an explicit generator.
+
+    In train() mode each element is kept with probability 1 - rate and
+    scaled by 1 / (1 - rate); in eval() mode (the reference's
+    `deterministic=True`), or at rate 0, it is the identity. `generator`
+    is a torch.Generator on the activations' device, set for the whole
+    model by `YMT3.set_dropout_generator`; None draws from the device's
+    default generator."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        if keep == 0.0:
+            return torch.zeros_like(x)
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
 class FeedForward(nn.Module):
-    """T5.1.1 gated FF (act(wi_0) ⊙ wi_1 → wo) or plain act FF."""
+    """T5.1.1 gated FF (act(wi_0) ⊙ wi_1 → wo) or plain act FF, with
+    dropout on the hidden activations before `wo`."""
 
     def __init__(self, d_model: int, d_ff: int, act: str,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None, dropout_rate: float = 0.0):
         super().__init__()
         if act == "moe":
             raise NotImplementedError(
@@ -303,17 +331,19 @@ class FeedForward(nn.Module):
         else:
             self.wi = QuantDense(d_model, d_ff, dtype, device)
         self.wo = QuantDense(d_ff, d_model, dtype, device)
+        self.dropout = Dropout(dropout_rate)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         for lin in self.children():
-            fan_in_normal_(lin.weight, gen)
+            if isinstance(lin, QuantDense):
+                fan_in_normal_(lin.weight, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.gated:
             y = self.act(self.wi_0(x)) * self.wi_1(x)
         else:
             y = self.act(self.wi(x))
-        return self.wo(y)
+        return self.wo(self.dropout(y))
 
 
 def sinusoidal_positions(length: int, dim: int) -> np.ndarray:

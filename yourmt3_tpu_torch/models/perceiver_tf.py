@@ -22,7 +22,7 @@ from torch import nn
 
 from ..config.model import ModelConfig
 from .conv_block import ConvPreEncoder
-from .layers import (DTYPES, FeedForward, MultiHeadAttention, QuantDense,
+from .layers import (DTYPES, Dropout, FeedForward, MultiHeadAttention, QuantDense,
                      RMSNorm, sinusoidal_positions)
 
 UNPORTED = ("{} is not ported yet (ROADMAP Queue 1 item 16: other encoders "
@@ -43,12 +43,14 @@ class PTFBlockAttention(nn.Module):
         self.norm1 = RMSNorm(d, dt)
         self.attention = MultiHeadAttention(h, d // h, d, dt)
         self.norm2 = RMSNorm(d, dt)
-        self.mlp = FeedForward(d, 4 * d, cfg.ptf_ff_act, dt)
+        self.mlp = FeedForward(d, 4 * d, cfg.ptf_ff_act, dt,
+                               dropout_rate=cfg.dropout_rate)
+        self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.norm1(x)
-        x = x + self.attention(h, h, None)
-        return x + self.mlp(self.norm2(x))
+        x = x + self.dropout(self.attention(h, h, None))
+        return x + self.dropout(self.mlp(self.norm2(x)))
 
 
 class SpectralCrossAttention(nn.Module):
@@ -63,7 +65,8 @@ class SpectralCrossAttention(nn.Module):
         self.norm_kv = RMSNorm(d, dt)
         self.attention = MultiHeadAttention(h, d // h, d, dt)
         self.ff_norm = RMSNorm(d, dt)
-        self.ff = FeedForward(d, 4 * d, cfg.ptf_ff_act, dt)
+        self.ff = FeedForward(d, 4 * d, cfg.ptf_ff_act, dt,
+                              dropout_rate=cfg.dropout_rate)
 
     def forward(self, q: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
         h = self.attention(self.norm_q(q), self.norm_kv(tok), None)

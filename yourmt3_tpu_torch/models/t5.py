@@ -31,7 +31,7 @@ from ..ops.decode_attention import (dense_to_paged, paged_cache_update,
 from ..ops.int4_cross_attention import int4_cross_attention
 from ..ops.kv_quant import (int4_decode_attention, int8_decode_attention,
                             quantize_kv, quantize_kv4, quantize_kv4_crosspack)
-from .layers import (DTYPES, NEG_INF, FeedForward, MultiHeadAttention,
+from .layers import (DTYPES, NEG_INF, Dropout, FeedForward, MultiHeadAttention,
                      QuantDense, RMSNorm, RelativePositionBias,
                      dot_product_attention, relative_position_bucket,
                      sinusoidal_positions)
@@ -71,7 +71,8 @@ class T5LayerFF(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         dt = compute_dtype(cfg)
-        self.DenseReluDense = FeedForward(cfg.d_model, cfg.d_ff, cfg.ff_act, dt)
+        self.DenseReluDense = FeedForward(cfg.d_model, cfg.d_ff, cfg.ff_act, dt,
+                                          dropout_rate=cfg.dropout_rate)
         self.layer_norm = RMSNorm(cfg.d_model, dt)
 
 
@@ -82,12 +83,13 @@ class T5EncoderLayer(nn.Module):
         self.layer = nn.ModuleList([
             T5LayerSelfAttention(cfg, relative_bias=relative_bias),
             T5LayerFF(cfg)])
+        self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         sa, ff = self.layer
         h = sa.layer_norm(x)
-        x = x + sa.SelfAttention(h, h, bias)
-        return x + ff.DenseReluDense(ff.layer_norm(x))
+        x = x + self.dropout(sa.SelfAttention(h, h, bias))
+        return x + self.dropout(ff.DenseReluDense(ff.layer_norm(x)))
 
 
 class T5Encoder(nn.Module):
@@ -105,6 +107,7 @@ class T5Encoder(nn.Module):
             [T5EncoderLayer(cfg, rel if i == 0 else None)
              for i in range(cfg.num_encoder_layers)])
         self.final_layer_norm = RMSNorm(cfg.d_model, dt)
+        self.dropout = Dropout(cfg.dropout_rate)
         if cfg.encoder_abs_pos == "learned":
             self.pos_embed = nn.Parameter(torch.empty(2048, cfg.d_model))
         elif cfg.encoder_abs_pos not in ("sinusoidal", "none"):
@@ -124,6 +127,7 @@ class T5Encoder(nn.Module):
             x = x + pos.to(device=x.device, dtype=x.dtype)[None]
         elif c.encoder_abs_pos == "learned":
             x = x + self.pos_embed[:T].to(x.dtype)[None]
+        x = self.dropout(x)
         bias = self.rel_bias(T, T)
         for lyr in self.block:
             x = lyr(x, bias)
@@ -139,13 +143,14 @@ class T5DecoderLayer(nn.Module):
             T5LayerSelfAttention(cfg, cfg.decoder_kv_heads, relative_bias),
             T5LayerCrossAttention(cfg),
             T5LayerFF(cfg)])
+        self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, y, enc_out, self_bias):
         sa, ca, ff = self.layer
         h = sa.layer_norm(y)
-        y = y + sa.SelfAttention(h, h, self_bias)
-        y = y + ca.EncDecAttention(ca.layer_norm(y), enc_out, None)
-        return y + ff.DenseReluDense(ff.layer_norm(y))
+        y = y + self.dropout(sa.SelfAttention(h, h, self_bias))
+        y = y + self.dropout(ca.EncDecAttention(ca.layer_norm(y), enc_out, None))
+        return y + self.dropout(ff.DenseReluDense(ff.layer_norm(y)))
 
     # ---- single-step decode with external caches ----------------------
     def decode_step(self, y: torch.Tensor, self_kv, pos: int, cross_kv,
@@ -253,6 +258,7 @@ class T5Decoder(nn.Module):
             [T5DecoderLayer(cfg, rel if i == 0 else None)
              for i in range(cfg.num_decoder_layers)])
         self.final_layer_norm = RMSNorm(cfg.d_model, compute_dtype(cfg))
+        self.dropout = Dropout(cfg.dropout_rate)
 
     @property
     def rel_bias(self) -> RelativePositionBias:
@@ -267,6 +273,7 @@ class T5Decoder(nn.Module):
 
     def forward(self, y: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
         """(B, L, D) embedded ids + (B, T, D) memory → (B, L, D) hidden."""
+        y = self.dropout(y)
         bias = self.causal_bias(y.shape[1])
         for lyr in self.block:
             y = lyr(y, enc_out, bias)

@@ -1,14 +1,17 @@
 """YMT3: full model assembly (encoder + projection + decoder).
 
 The audio frontend (ops/frontend.py) runs outside this module; the model
-consumes (B, T, F) features. Parameter names are those of the reference
+consumes (B, T, F) features. Dropout (rate `cfg.dropout_rate`) is active in
+train() mode and draws from the generator given to
+`set_dropout_generator`; eval() mode is the reference's
+`deterministic=True`. Parameter names are those of the reference
 checkpoint naming: `shared.weight`, `lm_head.weight`, `encoder.*`,
 `decoder.*` (see weights.py).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -16,8 +19,9 @@ from torch import nn
 from ..config.model import ModelConfig
 from ..ops.decode_attention import empty_paged_cache, empty_paged_scales
 from ..ops.weight_quant import quantize_decoder_weights
+from ..tokens.codec import PAD_ID
 from .conv_block import Conv2dSame
-from .layers import (FeedForward, MultiHeadAttention, QuantDense,
+from .layers import (Dropout, FeedForward, MultiHeadAttention, QuantDense,
                      RelativePositionBias, lecun_truncated_normal_, normal_)
 from .perceiver_tf import PerceiverTFEncoder
 from .projection import EncoderProjection
@@ -67,6 +71,13 @@ class YMT3(nn.Module):
         for mod in self.modules():
             if isinstance(mod, QuantDense) and mod.weight_quant != "none":
                 mod.requantize()
+
+    def set_dropout_generator(self, gen: Optional[torch.Generator]) -> None:
+        """Every dropout site draws from `gen` (a generator on the model's
+        device) in train() mode."""
+        for mod in self.modules():
+            if isinstance(mod, Dropout):
+                mod.generator = gen
 
     @property
     def dtype(self) -> torch.dtype:
@@ -152,3 +163,28 @@ class YMT3(nn.Module):
         return [(torch.zeros(shape, dtype=dt, device=device),
                  torch.zeros(shape, dtype=dt, device=device))
                 for _ in range(n)]
+
+
+def shift_right(labels: torch.Tensor, start_id: int = 0) -> torch.Tensor:
+    """(…, L) labels → decoder inputs: [start, y₀, …, y_{L-2}]."""
+    start = torch.full((*labels.shape[:-1], 1), start_id, dtype=labels.dtype,
+                       device=labels.device)
+    return torch.cat([start, labels[..., :-1]], dim=-1)
+
+
+def ce_loss(logits: torch.Tensor, labels: torch.Tensor,
+            label_smoothing: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad-masked token cross entropy.
+
+    logits (B, C, L, V) fp32, labels (B, C, L) int → (scalar loss,
+    accuracy). With label smoothing ε the target log-likelihood is
+    (1 - ε)·log p(y) + ε·mean_v log p(v)."""
+    mask = (labels != PAD_ID).to(torch.float32)
+    logz = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logz, -1, labels[..., None].long())[..., 0]
+    if label_smoothing > 0.0:
+        ll = (1.0 - label_smoothing) * ll + label_smoothing * logz.mean(-1)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = -(ll * mask).sum() / denom
+    acc = ((logits.argmax(-1) == labels).to(torch.float32) * mask).sum() / denom
+    return loss, acc

@@ -5,6 +5,8 @@ periodic Hann window, HTK mel scale, magnitude (power=1.0) spectrogram.
 The STFT is a GEMM against precomputed rFFT bases with the window folded
 in, so framing is a block gather (hop divides n_fft) and the rest is
 three matrix products in fp32. TF32 is never enabled for these products.
+`use_pallas=True` routes a log-mel frontend through the fused kernel
+(ops/fused_logmel.py), which keeps the frames and spectra on chip.
 """
 
 from __future__ import annotations
@@ -82,15 +84,21 @@ class SpectrogramFrontend(nn.Module):
     """(B, input_frames) float32 audio → (B, T, F) float32 log features.
 
     The window-folded DFT bases and the mel filterbank are buffers, so
-    `.to(device)` moves them with the module."""
+    `.to(device)` moves them with the module. With `use_pallas` (the JAX
+    package's name for the switch) a log-mel frontend runs the fused
+    kernel (ops/fused_logmel.py): CUDA inputs launch it, CPU inputs take
+    its plain version. The "spec" codec has no filterbank and never takes
+    the kernel."""
 
-    def __init__(self, cfg: AudioConfig, device=None):
+    def __init__(self, cfg: AudioConfig, device=None, use_pallas: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.use_pallas = use_pallas
         n_bins = cfg.n_fft // 2 + 1
         cos_b, sin_b = rfft_basis(cfg.n_fft)
         win = hann_window(cfg.n_fft)
-        f32 = dict(dtype=torch.float32, device=device)
+        f32 = dict(dtype=dtype, device=device)
         self.register_buffer("window", torch.tensor(win, **f32))
         self.register_buffer("basis_cos", torch.tensor(cos_b * win[:, None], **f32))
         self.register_buffer("basis_sin", torch.tensor(sin_b * win[:, None], **f32))
@@ -100,6 +108,12 @@ class SpectrogramFrontend(nn.Module):
                 mel_filterbank(n_bins, cfg.n_mels, cfg.sample_rate, cfg.f_min,
                                cfg.f_max, cfg.mel_htk, cfg.mel_norm), **f32)
         self.register_buffer("mel_fb", mel)
+        self._packed = None  # the kernel's layout of the bases, made at first use
+
+    @classmethod
+    def from_config(cls, cfg: AudioConfig, dtype: torch.dtype = torch.float32,
+                    use_pallas: bool = False, device=None) -> "SpectrogramFrontend":
+        return cls(cfg, device=device, use_pallas=use_pallas, dtype=dtype)
 
     def frame(self, audio: torch.Tensor) -> torch.Tensor:
         """(B, input_frames) → (B, T, n_fft) via reflect-pad + block gather."""
@@ -121,7 +135,10 @@ class SpectrogramFrontend(nn.Module):
         """(B, input_frames) or (B, 1, input_frames) → (B, T, F) float32."""
         if audio.ndim == 3:
             audio = audio[:, 0, :]
-        frames = self.frame(audio.to(torch.float32))
+        audio = audio.to(torch.float32)
+        if self.use_pallas and self.mel_fb is not None:
+            return self._fused(audio)
+        frames = self.frame(audio)
         re = torch.matmul(frames, self.basis_cos)
         im = torch.matmul(frames, self.basis_sin)
         mag = torch.sqrt(re * re + im * im + 1e-12)
@@ -130,3 +147,12 @@ class SpectrogramFrontend(nn.Module):
         if self.mel_fb is not None:
             mag = torch.matmul(mag, self.mel_fb)
         return torch.log(torch.clamp(mag, min=self.cfg.log_offset))
+
+    def _fused(self, audio: torch.Tensor) -> torch.Tensor:
+        from .fused_logmel import fused_logmel, pack_bases
+        args = (self.basis_cos, self.basis_sin, self.mel_fb)
+        if audio.device.type != "cuda":
+            return fused_logmel(audio, *args, self.cfg)
+        if self._packed is None or self._packed[0].device != audio.device:
+            self._packed = pack_bases(*args)
+        return fused_logmel(audio, *args, self.cfg, packed=self._packed)
