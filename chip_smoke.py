@@ -7,14 +7,20 @@
 Phases:
   1. device and build: the card's name and power limit, then every CUDA
      kernel of the three paths and the launch probe compiled from the
-     sources in this checkout, one nvcc per source, all started together;
+     sources in this checkout (one nvcc per source, all started together)
+     and linked with the torch binding (ops/csrc/torch_ops.cpp) into one
+     library of PyTorch operators, loaded with torch.ops.load_library;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes of its path, in every mode; timed with CUDA events (over
      CUDA-graph replays for the decode kernels) beside its plain version,
      the one PyTorch call that computes the same function (library_ms)
-     and its bound. The fused log-mel kernel is held at B in {1, 8, 16};
-     the launch probe's own path is its launch-overhead measurement
-     (eager through ctypes, inside one CUDA graph, and torch's x + 1);
+     and its bound. The paged kernel is timed at pos 127, 511 and 1023
+     with its split count, with register loads and with cp.async-staged
+     loads; the fused log-mel kernel is held at B in {1, 8, 16}; the
+     launch probe's own path is its launch-overhead measurement (eager
+     through its operator in turns with torch's x + 1, then each inside
+     one CUDA graph);
+     then each wrapper's eager host µs per call beside torch's x + 1;
   3. the two main paths, each with every launch count set to 0 just
      before it and read just after:
      a. t5_small: the CLI transcribes a seeded ~6 s sine-mixture WAV at
@@ -59,8 +65,6 @@ import time
 
 import numpy as np
 
-KERNEL_SOURCES = ["paged_decode_attention", "int4_cross_attention",
-                  "fused_logmel", "launch_probe"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 
@@ -95,6 +99,7 @@ TINY_FLAGSHIP = dict(d_model=64, d_kv=16, num_heads=4, d_ff=128,
 TOL_LOGMEL = 1e-3
 LOGMEL_BATCHES = (1, 8, 16)
 TRAIN_BATCH, TRAIN_STEPS, PROFILED_STEPS = 16, 20, 3
+PROBE_ROUNDS = 7  # chains of the probe and of torch's x + 1, in turns
 
 
 def log(msg: str) -> None:
@@ -208,10 +213,14 @@ def bound(S, pos):
 
 def time_kernel(dev):
     """Times at the main path's shape: S = 8, int8 pages, table bias, a
-    decoder's 8 layer caches cycled (53 MB, about the size of L2)."""
+    decoder's 8 layer caches cycled (53 MB, about the size of L2); the
+    kernel with its own split count, once with register loads (the
+    wrapper's) and once with cp.async-staged loads (the operator's
+    `staged` flag)."""
     import torch
     import torch.nn.functional as F
     from yourmt3_tpu_torch.models.layers import relative_position_bucket
+    from yourmt3_tpu_torch.ops import cuda_build
     from yourmt3_tpu_torch.ops import decode_attention as da
     from yourmt3_tpu_torch.ops.kv_quant import dequantize_kv
     gen = torch.Generator().manual_seed(1)
@@ -220,6 +229,7 @@ def time_kernel(dev):
     dist = da.distance_buckets(BUCKETS, MAXD).to(dev)
     q = torch.randn(S, H, DK, generator=gen).to(dev).to(torch.bfloat16)
     caches = [make_pages(S, True, gen, dev) for _ in range(layers)]
+    op = cuda_build.op("paged_decode_attention")
 
     def dense(c, n):  # (NB,S,H,block,dk) int8 + (S,NB,H,block) → (S,H,L,dk)
         vals = c[n].permute(1, 2, 0, 3, 4).reshape(S, H, L, DK)
@@ -241,6 +251,10 @@ def time_kernel(dev):
                 da.paged_decode_attention(q, c["k"], c["v"], pos, k_scale=c["ks"],
                                           v_scale=c["vs"], **kw)
 
+        def staged():
+            for c in caches:
+                op(q, c["k"], c["v"], pos, None, table, dist, c["ks"], c["vs"], 0, True)
+
         def plain():
             for c in caches:
                 da.paged_decode_attention_plain(q, c["k"], c["v"], pos,
@@ -252,15 +266,35 @@ def time_kernel(dev):
                 F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
                                                scale=1.0)
 
+        c = caches[0]
+        err = (op(q, c["k"], c["v"], pos, None, table, dist, c["ks"], c["vs"], 0, True)
+               .float() - da.paged_decode_attention(
+                   q, c["k"], c["v"], pos, k_scale=c["ks"], v_scale=c["vs"], **kw)
+               .float()).abs().max().item()
+        assert err < TOL_BF16, err  # the two loaders, bf16 outputs
+        # ranges given by the caller cut the whole cache (at pos 1023 the
+        # live rows); rows = L is one range
+        sweep = {}
+        for given in ((64, 128, 192, 256, 512, L) if pos == L - 1 else (L,)):
+            def cut(given=given):
+                for c in caches:
+                    op(q, c["k"], c["v"], pos, None, table, dist, c["ks"], c["vs"],
+                       given, False)
+            sweep[given] = graph_ms(cut, layers)
         b_ms, b_by = bound(S, pos)
-        rows[pos] = dict(ms=graph_ms(kernel, layers),
+        splits, split_rows = da.decode_splits(S, H, pos)
+        rows[pos] = dict(ms=graph_ms(kernel, layers), staged_ms=graph_ms(staged, layers),
                          plain_ms=graph_ms(plain, layers),
                          library_ms=graph_ms(library, layers),
                          bound_ms=b_ms, bound_by=b_by)
         r = rows[pos]
-        log(f"time S={S} int8+table pos={pos}: kernel {r['ms'] * 1e3:.2f} us, "
-            f"plain {r['plain_ms'] * 1e3:.2f} us, library (SDPA, dense bf16) "
-            f"{r['library_ms'] * 1e3:.2f} us, bound ({b_by}) {b_ms * 1e3:.2f} us")
+        log(f"time S={S} int8+table pos={pos} ({splits} ranges of {split_rows} "
+            f"rows, {S * H * splits} CTAs): kernel {r['ms'] * 1e3:.2f} us (cp.async-"
+            f"staged loads {r['staged_ms'] * 1e3:.2f} us), plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, library (SDPA, dense bf16) "
+            f"{r['library_ms'] * 1e3:.2f} us, bound ({b_by}) {b_ms * 1e3:.2f} us; "
+            f"ranges given: " + ", ".join(f"{g} rows {t * 1e3:.2f} us"
+                                           for g, t in sweep.items()))
     return rows
 
 
@@ -471,8 +505,10 @@ def probe_path(dev):
     """The launch probe: exact against its plain version, then its own
     path, the launch-overhead measurement, with its count set to 0 just
     before and read just after. Each launch's output feeds the next
-    launch's input: eager through ctypes (device clock between events,
-    and host clock), inside one CUDA graph, and torch's x + 1 both ways."""
+    launch's input: eager through its operator and torch's x + 1 in turns
+    (PROBE_ROUNDS chains of each, alternating which goes first, the median
+    of each on the device clock between events and on the host clock),
+    then each inside one CUDA graph."""
     import torch
     from yourmt3_tpu_torch.ops import launch_probe as lp
     x0 = torch.randn(8, 128, generator=torch.Generator().manual_seed(5)).to(dev)
@@ -480,6 +516,7 @@ def probe_path(dev):
     torch.cuda.synchronize()
     assert torch.equal(got, lp.launch_probe_plain(x0))
     n, chain_len = 2000, 100
+    fns = {"probe": lp.launch_probe, "torch": lp.launch_probe_plain}
 
     def chain(fn, k):
         x = torch.zeros(8, 128, device=dev)
@@ -487,28 +524,43 @@ def probe_path(dev):
             x = fn(x)
         return x
 
-    lp.launch_probe.launches = 0
-    out = {}
-    for name, fn in (("probe", lp.launch_probe), ("torch", lp.launch_probe_plain)):
-        end = chain(fn, n)
+    def timed_chain(fn):
+        """(device ms, host ms) per launch of one chain of n launches."""
         torch.cuda.synchronize()
-        assert torch.equal(end, torch.full_like(end, float(n))), name
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         t = time.perf_counter()
-        chain(fn, n)
+        start.record()
+        last = chain(fn, n)
+        end.record()
         torch.cuda.synchronize()
         host = (time.perf_counter() - t) / n * 1e3
-        out[name] = dict(eager_ms=events_ms(lambda: chain(fn, n), 1) / n,
-                         host_ms=host,
-                         graph_ms=graph_ms(lambda: chain(fn, chain_len), chain_len,
-                                           replays=20))
+        assert torch.equal(last, torch.full_like(last, float(n)))
+        return start.elapsed_time(end) / n, host
+
+    lp.launch_probe.launches = 0
+    for fn in fns.values():
+        timed_chain(fn)  # warm-up
+    runs = {name: [] for name in fns}
+    for r in range(PROBE_ROUNDS):
+        for name in (("probe", "torch") if r % 2 == 0 else ("torch", "probe")):
+            runs[name].append(timed_chain(fns[name]))
+    out = {name: dict(eager_ms=float(np.median([d for d, _ in rs])),
+                      host_ms=float(np.median([h for _, h in rs])),
+                      graph_ms=graph_ms(lambda: chain(fns[name], chain_len), chain_len,
+                                        replays=20))
+           for name, rs in runs.items()}
     launches = lp.launch_probe.launches
     p, t = out["probe"], out["torch"]
-    log(f"launch probe (8x128 fp32 x + 1, chained): kernel eager "
-        f"{p['eager_ms'] * 1e3:.2f} us/launch on the device clock "
-        f"({p['host_ms'] * 1e3:.2f} us on the host clock), in a CUDA graph "
-        f"{p['graph_ms'] * 1e3:.2f} us/launch; torch x + 1 eager "
-        f"{t['eager_ms'] * 1e3:.2f} us ({t['host_ms'] * 1e3:.2f} us host), in a "
-        f"graph {t['graph_ms'] * 1e3:.2f} us; probe launches {launches}")
+    log(f"launch probe (8x128 fp32 x + 1, chained, median of {PROBE_ROUNDS} chains "
+        f"of {n} in turns with torch's): kernel eager {p['eager_ms'] * 1e3:.2f} "
+        f"us/launch on the device clock ({p['host_ms'] * 1e3:.2f} us on the host "
+        f"clock), in a CUDA graph {p['graph_ms'] * 1e3:.2f} us/launch; torch x + 1 "
+        f"eager {t['eager_ms'] * 1e3:.2f} us ({t['host_ms'] * 1e3:.2f} us host), in "
+        f"a graph {t['graph_ms'] * 1e3:.2f} us; probe launches {launches}")
+    log("  device us per launch by chain, probe: " + " ".join(
+        f"{d * 1e3:.2f}" for d, _ in runs["probe"]) + "; torch: " + " ".join(
+        f"{d * 1e3:.2f}" for d, _ in runs["torch"]))
     assert launches > 0
     nbytes = 2 * 8 * 128 * 4
     return dict(launches=launches, ms=p["eager_ms"], plain_ms=t["eager_ms"],
@@ -516,6 +568,60 @@ def probe_path(dev):
                 torch_graph_ms=t["graph_ms"],
                 bound_ms=max(nbytes / HBM_BYTES_PER_S, 1024 / FP32_FLOPS) * 1e3,
                 bound_by="bytes")
+
+
+def host_us(fn, n: int, rounds: int = 5) -> float:
+    """Host µs per eager call: `fn` called `n` times from an idle queue, the
+    host clock read before the closing synchronise (n stays far below the
+    launch queue's depth, so the host never waits on the device); the
+    median of `rounds`."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t) / n * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def wrapper_host_us(dev):
+    """Each wrapper's eager host µs per call at its main path's shape
+    (paged: S = 8, int8 pages, table bias, pos 1023; int4: S = 104; log-mel:
+    B = 16 with packed bases; probe: its tile), beside torch's x + 1."""
+    import torch
+    from yourmt3_tpu_torch.ops import decode_attention as da
+    from yourmt3_tpu_torch.ops import fused_logmel as fl
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    from yourmt3_tpu_torch.ops import launch_probe as lp
+    gen = torch.Generator().manual_seed(6)
+    pages = make_pages(8, True, gen, dev)
+    table = (torch.randn(BUCKETS, H, generator=gen) * 0.5).to(dev)
+    dist = da.distance_buckets(BUCKETS, MAXD).to(dev)
+    q = torch.randn(8, H, DK, generator=gen).to(dev).to(torch.bfloat16)
+    q4 = torch.randn(104, H4, DK4, generator=gen).to(dev).to(torch.bfloat16)
+    kv4 = int4_inputs(104, gen, dev)
+    fe = logmel_frontend(dev)
+    audio = logmel_audio(TRAIN_BATCH, dev)
+    bases = (fe.basis_cos, fe.basis_sin, fe.mel_fb, fe.cfg)
+    packed = fl.pack_bases(*bases[:3])
+    x = torch.zeros(8, 128, device=dev)
+    calls = [
+        ("paged_decode_attention", 100, lambda: da.paged_decode_attention(
+            q, pages["k"], pages["v"], L - 1, rel_table=table, dist_buckets=dist,
+            k_scale=pages["ks"], v_scale=pages["vs"])),
+        ("int4_cross_attention", 100, lambda: ia.int4_cross_attention(q4, *kv4)),
+        ("fused_logmel", 20, lambda: fl.fused_logmel(audio, *bases, packed=packed)),
+        ("launch_probe", 100, lambda: lp.launch_probe(x)),
+        ("torch x + 1", 100, lambda: x + 1.0),
+    ]
+    out = {name: host_us(fn, n) for name, n, fn in calls}
+    log("eager host us per call (host clock, queue never full): " + ", ".join(
+        f"{name} {us:.2f}" for name, us in out.items()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1083,8 +1189,10 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(smi)
     t0 = time.perf_counter()
-    cuda_build.build(KERNEL_SOURCES)
-    log(f"built {KERNEL_SOURCES} with nvcc in {time.perf_counter() - t0:.1f} s")
+    cuda_build.load()
+    log(f"built {list(cuda_build.KERNELS)} and the {cuda_build.BINDING} binding "
+        f"with nvcc into {os.path.relpath(cuda_build.LIBRARY)} and loaded it in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     worst = check_kernel(dev)
     worst4 = check_int4(dev)
@@ -1093,6 +1201,7 @@ def main(argv=None) -> int:
     rows4 = time_int4(dev)
     rows_mel = time_logmel(dev)
     probe = probe_path(dev)
+    wrapper_host_us(dev)
     if args.kernels_only:
         return 0
     from yourmt3_tpu_torch import api
@@ -1105,7 +1214,7 @@ def main(argv=None) -> int:
     where_time_goes("t5_small", api.init_model(
         "t5_small", "mt3_full_plus", seed=0,
         **api.fast_decode_overrides(1, 1024)), sine_song(), 496,
-        "paged_decode_kernel")
+        "paged_decode")  # the split kernel and its merge kernel
     where_time_goes("perceiver_tf_mc13", api.init_model(
         "perceiver_tf_mc13", "mc13_full_plus_256", seed=0, **FLAGSHIP),
         sine_song(16.0), 112, "int4_cross_kernel")

@@ -68,6 +68,99 @@ def test_paged_decode_attention_matches_plain(dev, kind, bias, qdt):
         assert err < TOL[qdt], (pos, err)
 
 
+def _paged_case(S, dk, kind, gen, dev, nb=NB):
+    """Pages, q and a table bias at S streams, width dk."""
+    pages = {}
+    for n in "kv":
+        x = torch.randn(nb, S, H, BLOCK, dk, generator=gen)
+        if kind == "int8":
+            vals, sc = quantize_kv(x)
+            pages[n] = vals.to(dev)
+            pages[n + "_scale"] = sc.permute(1, 0, 2, 3).contiguous().to(dev)
+        else:
+            pages[n] = x.to(torch.bfloat16 if kind == "bf16" else torch.float32).to(dev)
+    kw = dict(rel_table=torch.randn(BUCKETS, H, generator=gen).to(dev))
+    if kind == "int8":
+        kw.update(k_scale=pages["k_scale"], v_scale=pages["v_scale"])
+    return pages, kw
+
+
+# S·H below the SM count (48, 96: split-KV with a merge) and above it
+# (192, 624: one range, written directly); pos 700 leaves the last range
+# partial; dk = 128 with bf16 pages
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16], ids=["q32", "q16"])
+@pytest.mark.parametrize("S,dk,kind", [(8, 64, "int8"), (16, 64, "int8"), (32, 64, "int8"),
+                                       (104, 64, "bf16"), (8, 128, "bf16"),
+                                       (8, 16, "fp32")])
+def test_paged_split_kv_matches_plain(dev, S, dk, kind, qdt):
+    gen = torch.Generator().manual_seed(S + dk)
+    pages, kw = _paged_case(S, dk, kind, gen, dev)
+    q = torch.randn(S, H, dk, generator=gen).to(dev, qdt)
+    for pos in (0, 63, 64, 700, L - 1):
+        splits, rows = da.decode_splits(S, H, pos)
+        assert splits == -(-(pos + 1) // rows)
+        assert splits == 1 or rows % 64 == 0
+        if S * H >= torch.cuda.get_device_properties(dev).multi_processor_count:
+            assert splits == 1
+        before = da.paged_decode_attention.launches
+        got = da.paged_decode_attention(q, pages["k"], pages["v"], pos,
+                                        rel_max_distance=MAXD, **kw)
+        assert da.paged_decode_attention.launches == before + 1
+        want = da.paged_decode_attention_plain(q, pages["k"], pages["v"], pos,
+                                               rel_max_distance=MAXD, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == qdt and got.shape == (S, H, dk)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err < TOL[qdt], (pos, splits, err)
+
+
+# ranges given by the caller cut the whole cache, so ranges wholly past
+# pos write the empty partial; both loaders (registers, cp.async staging)
+@pytest.mark.parametrize("staged", [False, True], ids=["regs", "staged"])
+@pytest.mark.parametrize("split_rows", [64, 192, L])
+def test_paged_given_ranges_and_staged_loads_match_plain(dev, split_rows, staged):
+    from yourmt3_tpu_torch.ops import cuda_build
+    op = cuda_build.op("paged_decode_attention")
+    gen = torch.Generator().manual_seed(split_rows)
+    pages, kw = _paged_case(S, DK, "int8", gen, dev)
+    dist = da.distance_buckets(BUCKETS, MAXD, dev)
+    q = torch.randn(S, H, DK, generator=gen).to(dev)
+    for pos in (0, 100, 511, L - 1):
+        got = op(q, pages["k"], pages["v"], pos, None, kw["rel_table"], dist,
+                 kw["k_scale"], kw["v_scale"], split_rows, staged)
+        want = da.paged_decode_attention_split_plain(
+            q, pages["k"], pages["v"], pos, split_rows, rel_max_distance=MAXD, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        err = (got - want).abs().max().item()
+        assert err < TOL[torch.float32], (pos, err)
+
+
+def test_paged_op_replays_in_a_cuda_graph(dev):
+    """Captured once (output, split workspace and merge inside the graph),
+    replayed three times: the eager result each time."""
+    gen = torch.Generator().manual_seed(7)
+    pages, kw = _paged_case(S, DK, "int8", gen, dev)
+    kw["dist_buckets"] = da.distance_buckets(BUCKETS, MAXD, dev)
+    q = torch.randn(S, H, DK, generator=gen).to(dev, torch.bfloat16)
+    pos = L - 1
+    assert da.decode_splits(S, H, pos)[0] > 1
+    eager = da.paged_decode_attention(q, pages["k"], pages["v"], pos, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.paged_decode_attention(q, pages["k"], pages["v"], pos, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.paged_decode_attention(q, pages["k"], pages["v"], pos, **kw)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     gen = torch.Generator().manual_seed(1)
     pages = _pages("bf16", gen, dev)
@@ -82,6 +175,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         da.paged_decode_attention(q, pages["k"], pages["v"], L)
     with pytest.raises(ValueError, match="q on"):
         da.paged_decode_attention(q, pages["k"].cpu(), pages["v"], 0)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        da.paged_decode_attention(q, pages["k"], pages["v"], 0,
+                                  bias_row=torch.zeros(H, L, device=dev),
+                                  rel_table=torch.zeros(BUCKETS, H, device=dev))
     assert da.paged_decode_attention.launches == before
 
 

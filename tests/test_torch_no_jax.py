@@ -39,6 +39,14 @@ def test_no_jax_imports_anywhere_in_the_port():
     assert not bad, sorted(bad)
 
 
+def test_no_ctypes_in_the_kernel_ops():
+    """The kernels launch through registered PyTorch operators, not ctypes."""
+    files = sorted((ROOT / "yourmt3_tpu_torch" / "ops").rglob("*.py"))
+    assert len(files) > 5
+    bad = [str(f.relative_to(ROOT)) for f in files if "ctypes" in set(_imported_roots(f))]
+    assert not bad, bad
+
+
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from yourmt3_tpu_torch import api
     from yourmt3_tpu_torch.cli import train as cli_train

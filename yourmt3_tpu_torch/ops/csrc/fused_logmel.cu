@@ -12,7 +12,8 @@
 //   acc          = mag @ mel                        (fp32, on chip)
 //   out          = log(max(acc, log_offset))
 //
-// Layouts (prepared once by the wrapper, ops/fused_logmel.py):
+// Layouts (the bases packed once by ops/fused_logmel.py:pack_bases, the
+// audio padded by the operator, csrc/torch_ops.cpp):
 //   padded (B, Lp)            fp32, audio reflect-padded by n_fft/2
 //   cs     (n_fft, 2, Fp)     fp32: per sample, the Fp cos values, then
 //                             the Fp sin values; bins padded with zero

@@ -4,7 +4,8 @@
 // `tiny_kernel`): out = x + 1 on an (8, 128) fp32 tile. It does no work
 // worth the name (4 KB read, 4 KB written: about 2.4 ns at 3.35 TB/s), so
 // its time per launch is what a launch itself costs: issued eagerly from
-// Python through ctypes, or replayed inside a CUDA graph.
+// Python through its PyTorch operator (csrc/torch_ops.cpp), or replayed
+// inside a CUDA graph.
 //
 // Design: one CTA, one thread per element (up to 1024 elements).
 

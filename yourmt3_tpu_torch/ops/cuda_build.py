@@ -1,26 +1,40 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels as PyTorch operators.
 
-Each source under `ops/csrc/` has a plain C interface. It is compiled at
-first use with `nvcc` for sm_90a into `yourmt3_tpu_torch/build/` (listed
-in .gitignore) and loaded with ctypes. A library newer than its source is
-reused. Nothing here runs at import time.
+Each kernel under `ops/csrc/` (`<name>.cu`) keeps a plain C launch
+function and includes no torch header. `csrc/torch_ops.cpp`, the one
+translation unit that includes torch's headers, checks the arguments and
+registers the operators `torch.ops.yourmt3_tpu_torch.<name>` for CUDA.
+At first use every stale source is compiled with `nvcc -c` (the kernels
+for sm_90a), all compiles started together, and `nvcc` links the objects
+with torch's libraries into one library,
+`yourmt3_tpu_torch/build/libyourmt3_ops.so` (listed in .gitignore), which
+`torch.ops.load_library` loads once. An object newer than its source and a
+library newer than every object are reused, so editing a kernel does not
+recompile the torch headers. Nothing here runs at import time, and
+nothing falls back: a failed build or load raises.
 """
 
 from __future__ import annotations
 
-import ctypes
 import os
 import shutil
 import subprocess
-from typing import Dict, List, Sequence
+from typing import List
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "build")
-NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC"]
+KERNELS = ("paged_decode_attention", "int4_cross_attention", "fused_logmel",
+           "launch_probe")
+BINDING = "torch_ops"
+LIBRARY = os.path.join(BUILD_DIR, "libyourmt3_ops.so")
+NAMESPACE = "yourmt3_tpu_torch"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CU_FLAGS = ["-O3", "-std=c++17", *ARCH, "-Xcompiler", "-fPIC"]
+CXX_FLAGS = ["-O2", "-std=c++20", "-Xcompiler", "-fPIC"]
+TORCH_LIBS = ["c10", "c10_cuda", "torch", "torch_cpu", "torch_cuda"]
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
+_loaded = False
 
 
 def nvcc_path() -> str:
@@ -35,48 +49,91 @@ def nvcc_path() -> str:
                        "toolkit's nvcc (PATH or CUDA_HOME)")
 
 
-def build_commands(names: Sequence[str]) -> List[List[str]]:
-    """nvcc command lines for the named sources (`<name>.cu` → lib<name>.so)."""
+def _source(name: str) -> str:
+    return os.path.join(CSRC, name + (".cpp" if name == BINDING else ".cu"))
+
+
+def _object(name: str) -> str:
+    return os.path.join(BUILD_DIR, name + ".o")
+
+
+def _torch_flags():
+    """(include flags, ABI define, link flags) of the installed torch; the
+    CUDA headers come from nvcc's own toolkit."""
+    import torch
+    from torch.utils.cpp_extension import include_paths, library_paths
+    cuda_include = os.path.join(os.path.dirname(os.path.dirname(nvcc_path())),
+                                "include")
+    includes = [f"-I{p}" for p in [*include_paths(), cuda_include]]
+    abi = f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}"
+    lib = library_paths()[0]
+    link = [f"-L{lib}", *(f"-l{n}" for n in TORCH_LIBS), "-Xlinker", f"-rpath,{lib}"]
+    return includes, abi, link
+
+
+def build_commands() -> List[List[str]]:
+    """The compile command of each source (kernels, then the binding), then
+    the link command into LIBRARY. Each writes `<output>.tmp`, renamed
+    when it succeeds."""
     nvcc = nvcc_path()
-    return [[nvcc, *NVCC_FLAGS, "-o", _lib_path(n) + ".tmp",
-             os.path.join(CSRC, n + ".cu")] for n in names]
+    includes, abi, link = _torch_flags()
+    compiles = [[nvcc, *CU_FLAGS, "-c", _source(n), "-o", _object(n) + ".tmp"]
+                for n in KERNELS]
+    compiles.append([nvcc, *CXX_FLAGS, abi, *includes, "-c", _source(BINDING),
+                     "-o", _object(BINDING) + ".tmp"])
+    objects = [_object(n) for n in (*KERNELS, BINDING)]
+    return compiles + [[nvcc, "-shared", *ARCH, *objects, *link, "-o",
+                        LIBRARY + ".tmp"]]
 
 
-def _lib_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}.so")
+def _newer(path: str, than: str) -> bool:
+    return os.path.exists(path) and os.path.getmtime(path) >= os.path.getmtime(than)
 
 
-def _fresh(name: str) -> bool:
-    lib = _lib_path(name)
-    return (os.path.exists(lib) and os.path.getmtime(lib)
-            >= os.path.getmtime(os.path.join(CSRC, name + ".cu")))
-
-
-def build(names: Sequence[str]) -> None:
-    """Compile every stale source, all nvcc processes started together."""
-    todo = [n for n in names if not _fresh(n)]
-    if not todo:
-        return
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = [(n, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True))
-             for n, cmd in zip(todo, build_commands(todo))]
+def _run_all(cmds: List[List[str]]) -> None:
+    """Run the commands together; rename each one's output when it
+    succeeds, then raise with the log of each that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
     failed = []
-    for n, p in procs:
+    for cmd, p in procs:
         log, _ = p.communicate()
         if p.returncode != 0:
-            failed.append(f"{n}.cu (exit {p.returncode}):\n{log}")
+            failed.append(f"{' '.join(cmd)} (exit {p.returncode}):\n{log}")
         else:
-            os.replace(_lib_path(n) + ".tmp", _lib_path(n))
+            out = cmd[cmd.index("-o") + 1]
+            os.replace(out, out[:-len(".tmp")])
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built first if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(_lib_path(name))
-        _LOADED[name] = lib
-    return lib
+def build() -> str:
+    """Compile every stale source (all at once), link if any object is newer
+    than the library; → the library's path."""
+    names = (*KERNELS, BINDING)
+    stale = [i for i, n in enumerate(names) if not _newer(_object(n), _source(n))]
+    if not stale and all(_newer(LIBRARY, _object(n)) for n in names):
+        return LIBRARY
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    *compiles, link = build_commands()
+    _run_all([compiles[i] for i in stale])
+    _run_all([link])
+    return LIBRARY
+
+
+def load() -> None:
+    """Build if needed and load the operators, once per process."""
+    global _loaded
+    if not _loaded:
+        import torch
+        torch.ops.load_library(build())
+        _loaded = True
+
+
+def op(name: str):
+    """The loaded operator `torch.ops.yourmt3_tpu_torch.<name>` (its only
+    overload)."""
+    import torch
+    load()
+    return getattr(getattr(torch.ops, NAMESPACE), name).default

@@ -7,26 +7,24 @@ fp32 row scales stream-major, (S, NB, H, block), so every cache tensor
 keeps its stream axis where the beam reorder expects it (axis 1 for 5-D,
 axis 0 otherwise).
 
-`paged_decode_attention` launches the hand-written kernel
-(`csrc/paged_decode_attention.cu`) for CUDA tensors and runs
-`paged_decode_attention_plain` for CPU tensors; it never falls back from
-one to the other.
+`paged_decode_attention` launches the hand-written split-KV kernel
+(`csrc/paged_decode_attention.cu`, bound as the PyTorch operator
+`torch.ops.yourmt3_tpu_torch.paged_decode_attention`) for CUDA tensors and
+runs `paged_decode_attention_plain` for CPU tensors; it never falls back
+from one to the other. `paged_decode_attention_split_plain` repeats the
+kernel's split-and-merge algebra in plain PyTorch for the tests.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from ..models.layers import distance_buckets, relative_position_bucket
+from . import cuda_build
 
 NEG_INF = -1e30
-_KERNEL = "paged_decode_attention"
-_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_DKS = (16, 32, 64, 128)
 
 
 def _as_3d(q: torch.Tensor):
@@ -81,33 +79,59 @@ def paged_decode_attention_plain(
     return out[:, :, None, :] if squeeze else out
 
 
-def _check(t: torch.Tensor, name: str, device, dtype=None, shape=None):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, q on {device}")
-    if dtype is not None and t.dtype not in (
-            dtype if isinstance(dtype, tuple) else (dtype,)):
-        raise TypeError(f"{name} has dtype {t.dtype}, kernel takes {dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def paged_decode_attention_split_plain(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
+    split_rows: int, bias_row: Optional[torch.Tensor] = None,
+    rel_table: Optional[torch.Tensor] = None, rel_max_distance: int = 128,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The kernel's split-KV algebra in plain PyTorch (fp32), for the tests.
+
+    The cache's rows [0, L) are cut into ranges of `split_rows`, as the
+    kernel cuts them when given `split_rows` (and as a position held on
+    the device would need). Each range keeps the partial softmax state of
+    its live rows (j <= pos): max m_i, normaliser l_i = Σ exp(x - m_i) and
+    unnormalised accumulator acc_i = Σ exp(x - m_i) · v_scale · V; a range
+    wholly past pos keeps m_i = NEG_INF, l_i = 0, acc_i = 0. The merge
+    weighs each by e_i = exp(m_i - max m) and returns Σ e_i acc_i /
+    max(Σ e_i l_i, 1e-30) in q's dtype."""
+    q3, squeeze = _as_3d(q)
+    S, H, dk = q3.shape
+    NB, _, _, block, _ = k_cache.shape
+    L = NB * block
+    f32 = torch.float32
+    k = k_cache.permute(1, 2, 0, 3, 4).reshape(S, H, L, dk).to(f32)
+    v = v_cache.permute(1, 2, 0, 3, 4).reshape(S, H, L, dk).to(f32)
+    logits = torch.einsum("shd,shld->shl", q3.to(f32), k)
+    if k_scale is not None:
+        logits = logits * k_scale.permute(0, 2, 1, 3).reshape(S, H, L)
+    j = torch.arange(L, device=q.device, dtype=torch.int32)
+    if rel_table is not None:
+        bucket = relative_position_bucket(j - pos, False, rel_table.shape[0],
+                                          rel_max_distance)
+        logits = logits + rel_table.to(f32)[bucket.long()].T[None]
+    elif bias_row is not None:
+        logits = logits + bias_row.to(f32)[None]
+    live = j <= pos
+    logits = torch.where(live, logits, torch.full_like(logits, NEG_INF))
+    vsc = (v_scale.permute(0, 2, 1, 3).reshape(S, H, L) if v_scale is not None
+           else torch.ones_like(logits))
+    parts = []
+    for r0 in range(0, L, split_rows):
+        r = slice(r0, min(r0 + split_rows, L))
+        m = torch.amax(logits[..., r], dim=-1, keepdim=True)
+        p = torch.where(live[r], torch.exp(logits[..., r] - m), torch.zeros_like(m))
+        acc = torch.einsum("shl,shld->shd", p * vsc[..., r], v[..., r, :])
+        parts.append((m, p.sum(-1, keepdim=True), acc))
+    mm = torch.amax(torch.cat([m for m, _, _ in parts], -1), dim=-1, keepdim=True)
+    ll = sum(l * torch.exp(m - mm) for m, l, _ in parts)
+    acc = sum(a * torch.exp(m - mm) for m, _, a in parts)
+    out = (acc / torch.clamp(ll, min=1e-30)).to(q.dtype)
+    return out[:, :, None, :] if squeeze else out
 
 
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
-def _library() -> ctypes.CDLL:
-    from .cuda_build import load
-    lib = load(_KERNEL)
-    fn = lib.paged_decode_attention_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, p, p,
-                       i, i, i, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return lib
+_op = None  # torch.ops.yourmt3_tpu_torch.paged_decode_attention, bound at first use
 
 
 def paged_decode_attention(
@@ -131,79 +155,39 @@ def paged_decode_attention(
     (cross-attention). int8 pages need both scale tensors.
 
     CPU tensors go to the plain version; CUDA tensors launch the kernel
-    (and count one launch) or raise."""
-    if bias_row is not None and rel_table is not None:
-        raise ValueError("bias_row and rel_table are mutually exclusive")
-    if (k_scale is None) != (v_scale is None):
-        raise ValueError("k_scale and v_scale come together")
-    if q.device.type == "cpu":
+    through its operator, which checks the arguments (and count one
+    launch), or raise."""
+    if q.is_cpu:
+        if bias_row is not None and rel_table is not None:
+            raise ValueError("bias_row and rel_table are mutually exclusive")
+        if (k_scale is None) != (v_scale is None):
+            raise ValueError("k_scale and v_scale come together")
         return paged_decode_attention_plain(
             q, k_cache, v_cache, pos, bias_row=bias_row, rel_table=rel_table,
             rel_max_distance=rel_max_distance, k_scale=k_scale,
             v_scale=v_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention runs on cuda or cpu, "
-                         f"not {q.device}")
-
-    q3, squeeze = _as_3d(q)
-    S, H, dk = q3.shape
-    dev = q.device
-    if k_cache.ndim != 5:
-        raise ValueError(f"k_cache must be (NB, S, H, block, dk), got "
-                         f"{tuple(k_cache.shape)}")
-    NB, block = k_cache.shape[0], k_cache.shape[3]
-    L = NB * block
-    page_shape = (NB, S, H, block, dk)
-    _check(q3, "q", dev, (torch.float32, torch.bfloat16))
-    _check(k_cache, "k_cache", dev, tuple(_KV_CODES), page_shape)
-    _check(v_cache, "v_cache", dev, k_cache.dtype, page_shape)
-    quantized = k_cache.dtype == torch.int8
-    if quantized != (k_scale is not None):
-        raise ValueError("int8 pages need k_scale/v_scale; float pages take none")
-    if quantized:
-        _check(k_scale, "k_scale", dev, torch.float32, (S, NB, H, block))
-        _check(v_scale, "v_scale", dev, torch.float32, (S, NB, H, block))
-    if dk not in _DKS:
-        raise ValueError(f"dk={dk} not in {_DKS}")
-    if not 1 <= block <= 256:
-        raise ValueError(f"block={block} must be in [1, 256]")
-    if not 0 <= int(pos) < L:
-        raise ValueError(f"pos={pos} outside [0, {L})")
-    for t, name in ((k_cache, "k_cache"), (v_cache, "v_cache")):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    n_dist = num_buckets = 0
-    if rel_table is not None:
-        num_buckets = rel_table.shape[0]
-        _check(rel_table, "rel_table", dev, torch.float32, (num_buckets, H))
-        if num_buckets > 256:
-            raise ValueError(f"{num_buckets} buckets > 256")
-        if dist_buckets is None:
-            dist_buckets = distance_buckets(num_buckets, rel_max_distance, dev)
-        _check(dist_buckets, "dist_buckets", dev, torch.int32)
-        if dist_buckets.ndim != 1:
-            raise ValueError("dist_buckets must be 1-D")
-        n_dist = dist_buckets.shape[0]
-    else:
-        dist_buckets = None
-    if bias_row is not None:
-        _check(bias_row, "bias_row", dev, torch.float32, (H, L))
-
-    out = torch.empty((S, H, dk), dtype=q.dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().paged_decode_attention_launch(
-        _ptr(q3), _ptr(k_cache), _ptr(v_cache), _ptr(k_scale), _ptr(v_scale),
-        _ptr(rel_table), _ptr(dist_buckets), n_dist, num_buckets,
-        _ptr(bias_row), _ptr(out), S, H, NB, block, dk, int(pos),
-        _Q_CODES[q.dtype], _KV_CODES[k_cache.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
-                           f"error {err}")
+    global _op
+    if _op is None:
+        _op = cuda_build.op("paged_decode_attention")
+    if rel_table is not None and dist_buckets is None:
+        dist_buckets = distance_buckets(rel_table.shape[0], rel_max_distance,
+                                        q.device)
+    out = _op(q, k_cache, v_cache, int(pos), bias_row, rel_table, dist_buckets,
+              k_scale, v_scale)
     paged_decode_attention.launches += 1
-    return out[:, :, None, :] if squeeze else out
+    return out
 
 
 paged_decode_attention.launches = 0  # kernel launches since the last reset
+
+
+def decode_splits(streams: int, heads: int, pos: int):
+    """(ranges, rows per range) that the kernel picks on the current card
+    for `streams` x `heads` pairs at decode position `pos`. (The operator
+    also takes `split_rows`, which cuts the whole cache into ranges of
+    that many rows, and `staged`, the cp.async-staged loads; the tests
+    and chip_smoke.py's measurements set them.)"""
+    return tuple(cuda_build.op("paged_decode_splits")(streams, heads, pos))
 
 
 # ---------------------------------------------------------------------------

@@ -6,28 +6,26 @@ PyTorch version.
     mag    = sqrt(re² + im² + 1e-12)                  (squared if power == 2)
     out    = log(max(mag @ mel_fb, log_offset))       → (B, T, n_mels)
 
-`fused_logmel` launches the hand-written kernel (`csrc/fused_logmel.cu`)
+`fused_logmel` launches the hand-written kernel (`csrc/fused_logmel.cu`,
+bound as the PyTorch operator `torch.ops.yourmt3_tpu_torch.fused_logmel`)
 for CUDA tensors, which keeps the frames and the spectra on chip, and
 runs `fused_logmel_plain` for CPU tensors; it never falls back from one
-to the other. The reflect padding stays a torch op, as the reference
-leaves it to XLA.
+to the other. The reflect padding stays a torch op inside the operator,
+as the reference leaves it to XLA.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..config.audio import AudioConfig
-from .decode_attention import _check
+from . import cuda_build
 
-_KERNEL = "fused_logmel"
 FREQ_TILE = 128  # bins per kernel frequency tile
 DFT_BLOCK = 32  # samples per partial DFT sum (KB in the kernel)
-MAX_MELS = 512
 
 
 def reflect_pad(audio: torch.Tensor, n_fft: int) -> torch.Tensor:
@@ -60,17 +58,6 @@ def fused_logmel_plain(audio: torch.Tensor, basis_cos: torch.Tensor,
     return torch.log(torch.clamp(torch.matmul(mag, mel_fb), min=cfg.log_offset))
 
 
-def _library() -> ctypes.CDLL:
-    from .cuda_build import load
-    lib = load(_KERNEL)
-    fn = lib.fused_logmel_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def pack_bases(basis_cos: torch.Tensor, basis_sin: torch.Tensor,
                mel_fb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's layout of the constants: (cs (n_fft, 2, Fp), per
@@ -92,6 +79,9 @@ def frames_per_thread(batch: int, frames: int, sms: int) -> int:
     return 1
 
 
+_op = None  # torch.ops.yourmt3_tpu_torch.fused_logmel, bound at first use
+
+
 def fused_logmel(audio: torch.Tensor, basis_cos: torch.Tensor,
                  basis_sin: torch.Tensor, mel_fb: torch.Tensor,
                  cfg: AudioConfig,
@@ -102,44 +92,19 @@ def fused_logmel(audio: torch.Tensor, basis_cos: torch.Tensor,
     basis_* are the window-folded DFT bases (n_fft, n_bins), mel_fb
     (n_bins, n_mels); `packed` is their `pack_bases` layout, made here
     when not given. CPU tensors go to the plain version; CUDA tensors
-    launch the kernel (and count one launch) or raise."""
-    if audio.device.type == "cpu":
+    launch the kernel through its operator, which checks the arguments
+    (and count one launch), or raise."""
+    if audio.is_cpu:
         return fused_logmel_plain(audio, basis_cos, basis_sin, mel_fb, cfg)
-    if audio.device.type != "cuda":
-        raise ValueError(f"fused_logmel runs on cuda or cpu, not {audio.device}")
-    if audio.ndim != 2 or audio.shape[1] != cfg.input_frames:
-        raise ValueError(f"audio must be (B, {cfg.input_frames}), got "
-                         f"{tuple(audio.shape)}")
-    n_fft, n_bins = cfg.n_fft, cfg.n_fft // 2 + 1
-    n_mels = mel_fb.shape[1]
-    if n_fft % DFT_BLOCK:
-        raise ValueError(f"n_fft={n_fft}: the kernel takes a multiple of "
-                         f"{DFT_BLOCK}")
-    if n_mels % 32 or not 32 <= n_mels <= MAX_MELS:
-        raise ValueError(f"n_mels={n_mels}: the kernel takes a multiple of 32 "
-                         f"up to {MAX_MELS}")
-    dev = audio.device
-    _check(audio, "audio", dev, torch.float32)
-    for t, name, shape in ((basis_cos, "basis_cos", (n_fft, n_bins)),
-                           (basis_sin, "basis_sin", (n_fft, n_bins)),
-                           (mel_fb, "mel_fb", (n_bins, n_mels))):
-        _check(t, name, dev, torch.float32, shape)
-    cs, mel = packed or pack_bases(basis_cos, basis_sin, mel_fb)
-    fp = n_bins - n_bins % -FREQ_TILE
-    _check(cs, "packed cos/sin", dev, torch.float32, (n_fft, 2, fp))
-    _check(mel, "packed mel", dev, torch.float32, (fp, n_mels))
-    padded = reflect_pad(audio, n_fft).contiguous()
-    B, T = audio.shape[0], cfg.num_frames
-    out = torch.empty((B, T, n_mels), dtype=torch.float32, device=dev)
-    fpt = frames_per_thread(B, T, torch.cuda.get_device_properties(dev)
-                            .multi_processor_count)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().fused_logmel_launch(
-        padded.data_ptr(), cs.data_ptr(), mel.data_ptr(), out.data_ptr(), B,
-        padded.shape[1], T, n_fft, cfg.hop_length, mel.shape[0], n_mels,
-        float(cfg.log_offset), int(cfg.power == 2.0), fpt, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_logmel launch failed: CUDA error {err}")
+    global _op
+    if _op is None:
+        _op = cuda_build.op("fused_logmel")
+    cs, mel = packed or (None, None)
+    sms = torch.cuda.get_device_properties(audio.device).multi_processor_count
+    fpt = frames_per_thread(audio.shape[0], cfg.num_frames, sms)
+    out = _op(audio, basis_cos, basis_sin, mel_fb, cs, mel, cfg.input_frames,
+              cfg.num_frames, cfg.n_fft, cfg.hop_length, float(cfg.log_offset),
+              cfg.power == 2.0, fpt)
     fused_logmel.launches += 1
     return out
 

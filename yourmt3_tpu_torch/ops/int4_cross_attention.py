@@ -11,23 +11,18 @@ fp32 row scales. With nib = stored nibble (value + 8), the algebra is
     out_d = (Σ_t w_t · nib_{d,t} − 8 Σ_t w_t) / max(Σ_t p_t, 1e-30)
 
 `int4_cross_attention` launches the hand-written kernel
-(`csrc/int4_cross_attention.cu`) for CUDA tensors and runs
-`int4_cross_attention_plain` for CPU tensors; it never falls back from
-one to the other.
+(`csrc/int4_cross_attention.cu`, bound as the PyTorch operator
+`torch.ops.yourmt3_tpu_torch.int4_cross_attention`) for CUDA tensors and
+runs `int4_cross_attention_plain` for CPU tensors; it never falls back
+from one to the other.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .decode_attention import _as_3d, _check
-
-_KERNEL = "int4_cross_attention"
-_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_DKS = (16, 32, 64, 128)
-MAX_T = 4096  # the logits row lives in shared memory
+from . import cuda_build
+from .decode_attention import _as_3d
 
 
 def int4_cross_attention_plain(q: torch.Tensor, k4: torch.Tensor,
@@ -58,15 +53,7 @@ def int4_cross_attention_plain(q: torch.Tensor, k4: torch.Tensor,
     return out[:, :, None, :] if squeeze else out
 
 
-def _library() -> ctypes.CDLL:
-    from .cuda_build import load
-    lib = load(_KERNEL)
-    fn = lib.int4_cross_attention_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return lib
+_op = None  # torch.ops.yourmt3_tpu_torch.int4_cross_attention, bound at first use
 
 
 def int4_cross_attention(
@@ -79,40 +66,16 @@ def int4_cross_attention(
     """→ attention output with q's shape and dtype.
 
     CPU tensors go to the plain version; CUDA tensors launch the kernel
-    (and count one launch) or raise."""
-    if q.device.type == "cpu":
+    through its operator, which checks the arguments (and count one
+    launch), or raise."""
+    if q.is_cpu:
         return int4_cross_attention_plain(q, k4, ks, v4, vs)
-    if q.device.type != "cuda":
-        raise ValueError(f"int4_cross_attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    q3, squeeze = _as_3d(q)
-    S, H, dk = q3.shape
-    if dk not in _DKS:
-        raise ValueError(f"dk={dk} not in {_DKS}")
-    if k4.ndim != 4:
-        raise ValueError(f"k4 must be (S, H, dk/2, T), got {tuple(k4.shape)}")
-    T = k4.shape[3]
-    if not 1 <= T <= MAX_T:
-        raise ValueError(f"T={T} outside [1, {MAX_T}]")
-    dev = q.device
-    _check(q3, "q", dev, tuple(_Q_CODES))
-    for t, name in ((k4, "k4"), (v4, "v4")):
-        _check(t, name, dev, torch.uint8, (S, H, dk // 2, T))
-        if T % 16 == 0 and t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    for t, name in ((ks, "ks"), (vs, "vs")):
-        _check(t, name, dev, torch.float32, (S, H, T))
-
-    out = torch.empty((S, H, dk), dtype=q.dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().int4_cross_attention_launch(
-        q3.data_ptr(), k4.data_ptr(), ks.data_ptr(), v4.data_ptr(),
-        vs.data_ptr(), out.data_ptr(), S, H, dk, T, _Q_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"int4_cross_attention launch failed: CUDA error "
-                           f"{err}")
+    global _op
+    if _op is None:
+        _op = cuda_build.op("int4_cross_attention")
+    out = _op(q, k4, ks, v4, vs)
     int4_cross_attention.launches += 1
-    return out[:, :, None, :] if squeeze else out
+    return out
 
 
 int4_cross_attention.launches = 0  # kernel launches since the last reset

@@ -2,20 +2,18 @@
 
 The kernel (`csrc/launch_probe.cu`) does next to no work, so its time per
 launch, issued eagerly or replayed in a CUDA graph, is the cost of a
-launch. `launch_probe` launches it for CUDA tensors and runs
-`launch_probe_plain` for CPU tensors; it never falls back from one to the
-other.
+launch through the port's binding (the PyTorch operator
+`torch.ops.yourmt3_tpu_torch.launch_probe`). `launch_probe` launches it
+for CUDA tensors and runs `launch_probe_plain` for CPU tensors; it never
+falls back from one to the other.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .decode_attention import _check
+from . import cuda_build
 
-_KERNEL = "launch_probe"
 SHAPE = (8, 128)
 
 
@@ -23,31 +21,19 @@ def launch_probe_plain(x: torch.Tensor) -> torch.Tensor:
     return x + 1.0
 
 
-def _library() -> ctypes.CDLL:
-    from .cuda_build import load
-    lib = load(_KERNEL)
-    fn = lib.launch_probe_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return lib
+_op = None  # torch.ops.yourmt3_tpu_torch.launch_probe, bound at first use
 
 
 def launch_probe(x: torch.Tensor) -> torch.Tensor:
     """(8, 128) fp32 → x + 1. CPU tensors go to the plain version; CUDA
-    tensors launch the kernel (and count one launch) or raise."""
-    if x.device.type == "cpu":
+    tensors launch the kernel through its operator, which checks the
+    argument (and count one launch), or raise."""
+    if x.is_cpu:
         return launch_probe_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"launch_probe runs on cuda or cpu, not {x.device}")
-    _check(x, "x", x.device, torch.float32, SHAPE)
-    out = torch.empty_like(x)
-    err = _library().launch_probe_launch(
-        x.data_ptr(), out.data_ptr(), x.numel(),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"launch_probe launch failed: CUDA error {err}")
+    global _op
+    if _op is None:
+        _op = cuda_build.op("launch_probe")
+    out = _op(x)
     launch_probe.launches += 1
     return out
 
