@@ -15,8 +15,8 @@ Phases:
      CUDA-graph replays for the decode kernels) beside its plain version,
      the one PyTorch call that computes the same function (library_ms)
      and its bound. The paged kernel is timed at pos 127, 511 and 1023
-     with its split count, with register loads and with cp.async-staged
-     loads; the fused log-mel kernel is held at B in {1, 8, 16}; the
+     with its split count; the fused log-mel kernel is held at B in
+     {1, 8, 16}; the
      launch probe's own path is its launch-overhead measurement (eager
      through its operator in turns with torch's x + 1, then each inside
      one CUDA graph);
@@ -213,14 +213,11 @@ def bound(S, pos):
 
 def time_kernel(dev):
     """Times at the main path's shape: S = 8, int8 pages, table bias, a
-    decoder's 8 layer caches cycled (53 MB, about the size of L2); the
-    kernel with its own split count, once with register loads (the
-    wrapper's) and once with cp.async-staged loads (the operator's
-    `staged` flag)."""
+    decoder's 8 layer caches cycled (53 MB, about the size of L2), the
+    kernel with the split count it picks."""
     import torch
     import torch.nn.functional as F
     from yourmt3_tpu_torch.models.layers import relative_position_bucket
-    from yourmt3_tpu_torch.ops import cuda_build
     from yourmt3_tpu_torch.ops import decode_attention as da
     from yourmt3_tpu_torch.ops.kv_quant import dequantize_kv
     gen = torch.Generator().manual_seed(1)
@@ -229,7 +226,6 @@ def time_kernel(dev):
     dist = da.distance_buckets(BUCKETS, MAXD).to(dev)
     q = torch.randn(S, H, DK, generator=gen).to(dev).to(torch.bfloat16)
     caches = [make_pages(S, True, gen, dev) for _ in range(layers)]
-    op = cuda_build.op("paged_decode_attention")
 
     def dense(c, n):  # (NB,S,H,block,dk) int8 + (S,NB,H,block) → (S,H,L,dk)
         vals = c[n].permute(1, 2, 0, 3, 4).reshape(S, H, L, DK)
@@ -251,10 +247,6 @@ def time_kernel(dev):
                 da.paged_decode_attention(q, c["k"], c["v"], pos, k_scale=c["ks"],
                                           v_scale=c["vs"], **kw)
 
-        def staged():
-            for c in caches:
-                op(q, c["k"], c["v"], pos, None, table, dist, c["ks"], c["vs"], 0, True)
-
         def plain():
             for c in caches:
                 da.paged_decode_attention_plain(q, c["k"], c["v"], pos,
@@ -266,35 +258,16 @@ def time_kernel(dev):
                 F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
                                                scale=1.0)
 
-        c = caches[0]
-        err = (op(q, c["k"], c["v"], pos, None, table, dist, c["ks"], c["vs"], 0, True)
-               .float() - da.paged_decode_attention(
-                   q, c["k"], c["v"], pos, k_scale=c["ks"], v_scale=c["vs"], **kw)
-               .float()).abs().max().item()
-        assert err < TOL_BF16, err  # the two loaders, bf16 outputs
-        # ranges given by the caller cut the whole cache (at pos 1023 the
-        # live rows); rows = L is one range
-        sweep = {}
-        for given in ((64, 128, 192, 256, 512, L) if pos == L - 1 else (L,)):
-            def cut(given=given):
-                for c in caches:
-                    op(q, c["k"], c["v"], pos, None, table, dist, c["ks"], c["vs"],
-                       given, False)
-            sweep[given] = graph_ms(cut, layers)
         b_ms, b_by = bound(S, pos)
         splits, split_rows = da.decode_splits(S, H, pos)
-        rows[pos] = dict(ms=graph_ms(kernel, layers), staged_ms=graph_ms(staged, layers),
-                         plain_ms=graph_ms(plain, layers),
+        rows[pos] = dict(ms=graph_ms(kernel, layers), plain_ms=graph_ms(plain, layers),
                          library_ms=graph_ms(library, layers),
                          bound_ms=b_ms, bound_by=b_by)
         r = rows[pos]
         log(f"time S={S} int8+table pos={pos} ({splits} ranges of {split_rows} "
-            f"rows, {S * H * splits} CTAs): kernel {r['ms'] * 1e3:.2f} us (cp.async-"
-            f"staged loads {r['staged_ms'] * 1e3:.2f} us), plain "
+            f"rows, {S * H * splits} CTAs): kernel {r['ms'] * 1e3:.2f} us, plain "
             f"{r['plain_ms'] * 1e3:.2f} us, library (SDPA, dense bf16) "
-            f"{r['library_ms'] * 1e3:.2f} us, bound ({b_by}) {b_ms * 1e3:.2f} us; "
-            f"ranges given: " + ", ".join(f"{g} rows {t * 1e3:.2f} us"
-                                           for g, t in sweep.items()))
+            f"{r['library_ms'] * 1e3:.2f} us, bound ({b_by}) {b_ms * 1e3:.2f} us")
     return rows
 
 

@@ -1,7 +1,8 @@
 """The build of the port's CUDA kernels into one library of PyTorch
 operators (`yourmt3_tpu_torch/ops/cuda_build.py`), checked on the CPU: the
 command lines, and which sources a rebuild compiles. A stand-in for nvcc
-writes empty outputs; nothing is compiled or loaded here."""
+writes empty outputs and reports the version in the file beside it;
+nothing is compiled or loaded here."""
 
 import os
 import stat
@@ -18,14 +19,19 @@ ARCH = "arch=compute_90a,code=sm_90a"
 
 @pytest.fixture
 def fake_nvcc(tmp_path, monkeypatch):
-    """An nvcc that logs its arguments and writes its -o output."""
+    """An nvcc that prints the version in `version` beside it, or logs its
+    arguments and writes its -o output."""
     nvcc = tmp_path / "cuda" / "bin" / "nvcc"
     nvcc.parent.mkdir(parents=True)
+    (nvcc.parent / "version").write_text("Cuda compilation tools, release 12.9\n")
     log = tmp_path / "nvcc.log"
     nvcc.write_text(
         f"#!{sys.executable}\n"
-        "import sys\n"
+        "import os, sys\n"
         "args = sys.argv[1:]\n"
+        "if args == ['--version']:\n"
+        "    print(open(os.path.join(os.path.dirname(sys.argv[0]), 'version')).read())\n"
+        "    sys.exit(0)\n"
         f"open({str(log)!r}, 'a').write(' '.join(args) + '\\n')\n"
         "open(args[args.index('-o') + 1], 'w').close()\n")
     nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
@@ -64,13 +70,17 @@ def test_command_lines(fake_nvcc):
         assert f"-l{name}" in link
 
 
-def test_rebuild_compiles_only_what_changed(fake_nvcc, tmp_path, monkeypatch):
+@pytest.fixture
+def sources(fake_nvcc, tmp_path, monkeypatch):
+    """Stand-in sources and build directory; → run(), which builds and
+    returns the logged nvcc command lines."""
     _, log = fake_nvcc
     csrc, build = tmp_path / "csrc", tmp_path / "build"
     csrc.mkdir()
     for n in cuda_build.KERNELS:
         (csrc / f"{n}.cu").write_text("// kernel\n")
     (csrc / "torch_ops.cpp").write_text("// binding\n")
+    (csrc / "kernels.h").write_text("// launch functions\n")
     monkeypatch.setattr(cuda_build, "CSRC", str(csrc))
     monkeypatch.setattr(cuda_build, "BUILD_DIR", str(build))
     monkeypatch.setattr(cuda_build, "LIBRARY", str(build / "libyourmt3_ops.so"))
@@ -80,6 +90,11 @@ def test_rebuild_compiles_only_what_changed(fake_nvcc, tmp_path, monkeypatch):
         assert cuda_build.build() == str(build / "libyourmt3_ops.so")
         return [line.split() for line in log.read_text().splitlines()]
 
+    return run
+
+
+def test_rebuild_compiles_only_what_changed(sources, tmp_path):
+    run, build, csrc = sources, tmp_path / "build", tmp_path / "csrc"
     first = run()
     assert len(first) == 6 and "-shared" in first[-1]  # 5 compiles, then the link
     assert (build / "libyourmt3_ops.so").exists()
@@ -94,9 +109,37 @@ def test_rebuild_compiles_only_what_changed(fake_nvcc, tmp_path, monkeypatch):
 
 def test_failed_compile_raises_and_leaves_no_object(fake_nvcc, tmp_path, monkeypatch):
     nvcc, _ = fake_nvcc
-    nvcc.write_text("#!/bin/sh\necho 'error: no such intrinsic' >&2\nexit 2\n")
+    nvcc.write_text("#!/bin/sh\n[ \"$1\" = --version ] && exit 0\n"
+                    "echo 'error: no such intrinsic' >&2\nexit 2\n")
     monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(cuda_build, "LIBRARY", str(tmp_path / "build" / "lib.so"))
     with pytest.raises(RuntimeError, match="no such intrinsic"):
         cuda_build.build()
     assert not list((tmp_path / "build").glob("*.o"))
+
+
+# what every object depends on: a change to any recompiles all five sources
+@pytest.mark.parametrize("change", ["header", "flags", "nvcc", "torch"])
+def test_toolchain_or_header_change_recompiles_everything(sources, fake_nvcc, tmp_path,
+                                                          monkeypatch, change):
+    run, build = sources, tmp_path / "build"
+    assert len(run()) == 6
+    assert run() == []
+    assert (build / "libyourmt3_ops.so.stamp").exists()
+    if change == "header":  # the header edited after the build, the sources before
+        now = os.path.getmtime(tmp_path / "csrc" / "kernels.h")
+        for path, t in [*((p, now - 100) for p in build.iterdir()),
+                        *((p, now - 200) for p in (tmp_path / "csrc").iterdir()
+                          if p.name != "kernels.h")]:
+            os.utime(path, (t, t))
+    elif change == "flags":
+        monkeypatch.setattr(cuda_build, "CU_FLAGS", [*cuda_build.CU_FLAGS, "-lineinfo"])
+    elif change == "nvcc":
+        (fake_nvcc[0].parent / "version").write_text("Cuda compilation tools, release 13.0\n")
+    else:
+        monkeypatch.setattr(torch, "__version__", "0.0.0+other")
+    again = run()
+    assert len(again) == 6 and "-shared" in again[-1]
+    assert sorted(os.path.basename(c[c.index("-c") + 1]) for c in again[:-1]) == sorted(
+        [f"{n}.cu" for n in cuda_build.KERNELS] + ["torch_ops.cpp"])
+    assert run() == []  # the new stamp is written

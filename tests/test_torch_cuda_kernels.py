@@ -114,28 +114,6 @@ def test_paged_split_kv_matches_plain(dev, S, dk, kind, qdt):
         assert err < TOL[qdt], (pos, splits, err)
 
 
-# ranges given by the caller cut the whole cache, so ranges wholly past
-# pos write the empty partial; both loaders (registers, cp.async staging)
-@pytest.mark.parametrize("staged", [False, True], ids=["regs", "staged"])
-@pytest.mark.parametrize("split_rows", [64, 192, L])
-def test_paged_given_ranges_and_staged_loads_match_plain(dev, split_rows, staged):
-    from yourmt3_tpu_torch.ops import cuda_build
-    op = cuda_build.op("paged_decode_attention")
-    gen = torch.Generator().manual_seed(split_rows)
-    pages, kw = _paged_case(S, DK, "int8", gen, dev)
-    dist = da.distance_buckets(BUCKETS, MAXD, dev)
-    q = torch.randn(S, H, DK, generator=gen).to(dev)
-    for pos in (0, 100, 511, L - 1):
-        got = op(q, pages["k"], pages["v"], pos, None, kw["rel_table"], dist,
-                 kw["k_scale"], kw["v_scale"], split_rows, staged)
-        want = da.paged_decode_attention_split_plain(
-            q, pages["k"], pages["v"], pos, split_rows, rel_max_distance=MAXD, **kw)
-        torch.cuda.synchronize()
-        assert bool(torch.isfinite(got).all())
-        err = (got - want).abs().max().item()
-        assert err < TOL[torch.float32], (pos, err)
-
-
 def test_paged_op_replays_in_a_cuda_graph(dev):
     """Captured once (output, split workspace and merge inside the graph),
     replayed three times: the eager result each time."""
@@ -279,8 +257,9 @@ def test_fused_logmel_wrapper_rejects_what_the_kernel_does_not_take(dev):
         fl.fused_logmel(audio[:, :1000].contiguous(), *args)
     with pytest.raises(ValueError, match="n_mels"):
         fl.fused_logmel(audio, fe.basis_cos, fe.basis_sin, fe.mel_fb[:, :100], fe.cfg)
+    cs, mel = fl.pack_bases(fe.basis_cos, fe.basis_sin, fe.mel_fb)
     with pytest.raises(ValueError, match="q on|is on"):
-        fl.fused_logmel(audio, fe.basis_cos.cpu(), *args[1:])
+        fl.fused_logmel(audio, *args, packed=(cs.cpu(), mel))
     assert fl.fused_logmel.launches == before
 
 

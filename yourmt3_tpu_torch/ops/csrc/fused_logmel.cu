@@ -61,12 +61,14 @@
 
 #include <cuda_runtime.h>
 
+#include "kernels.h"
+
 namespace {
 
 constexpr int NT = 256;     // 8 warps: one frame group each
-constexpr int FT = 128;     // bins per frequency tile, 4 per lane
-constexpr int MAX_MJ = 16;  // mel columns per lane: M <= 512
-constexpr int KB = 32;      // samples per staged chunk and partial sum
+constexpr int FT = LOGMEL_FREQ_TILE;  // bins per frequency tile, 4 per lane
+constexpr int MAX_MJ = LOGMEL_MAX_MELS / 32;  // mel columns per lane
+constexpr int KB = LOGMEL_DFT_BLOCK;  // samples per staged chunk and partial sum
 constexpr int ROW4 = 2 * FT / 4;  // float4 per staged basis row: cos, sin
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -252,9 +254,7 @@ cudaError_t launch(const float* padded, const float4* cs, const float* mel,
 
 }  // namespace
 
-// frames_per_thread (FPT) in {1, 2, 4}; n_fft a multiple of 32; Fp a
-// multiple of 128; M a multiple of 32 and at most 512. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for arguments that have no instance.
+// n_fft a multiple of KB, Fp of FT, M of 32 and at most 32 * MAX_MJ.
 extern "C" int fused_logmel_launch(const void* padded, const void* cs,
                                    const void* mel, void* out, int B, int Lp,
                                    int T, int n_fft, int hop, int Fp, int M,

@@ -46,13 +46,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernels.h"
+
 namespace {
 
 constexpr int NT = 128;
 constexpr int NWARPS = NT / 32;
 constexpr int TC = 256;           // columns per staged chunk
 constexpr int SROW = TC + 16;     // padded shared row, bytes
-constexpr int MAX_T = 4096;       // logits row in shared memory
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -225,14 +226,12 @@ cudaError_t dispatch_dk(int dk, const void* q, const uint8_t* k4,
 
 }  // namespace
 
-// q_dtype: 0 = fp32, 1 = bf16. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a shape that has no instance.
 extern "C" int int4_cross_attention_launch(const void* q, const void* k4,
                                            const void* ks, const void* v4,
                                            const void* vs, void* out, int S,
                                            int H, int dk, int T, int q_dtype,
                                            void* stream) {
-  if (S < 1 || H < 1 || T < 1 || T > MAX_T)
+  if (S < 1 || H < 1 || T < 1 || T > INT4_MAX_T)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* k = static_cast<const uint8_t*>(k4);

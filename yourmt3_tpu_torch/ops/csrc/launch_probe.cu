@@ -11,6 +11,8 @@
 
 #include <cuda_runtime.h>
 
+#include "kernels.h"
+
 namespace {
 
 __global__ void launch_probe_kernel(const float* __restrict__ x,
@@ -21,8 +23,6 @@ __global__ void launch_probe_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
-// for n outside [1, 1024].
 extern "C" int launch_probe_launch(const void* x, void* out, int n,
                                    void* stream) {
   if (n < 1 || n > 1024) return static_cast<int>(cudaErrorInvalidValue);

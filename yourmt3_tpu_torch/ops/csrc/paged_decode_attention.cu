@@ -18,6 +18,7 @@
 //   out    (S, H, dk)               q's dtype
 //   work   fp32 scratch for split partials: (S*H, nsplit, 2) of (m, l),
 //          then (S*H, nsplit, dk) of unnormalised accumulators
+// The C interface and the limits are in kernels.h.
 //
 // Bound on an H100 SXM (3.35 TB/s): the work is bytes. At the t5_small
 // decode shape (S = 8, H = 6, dk = 64, block = 128, NB = 8, int8) and
@@ -25,21 +26,19 @@
 // 2*8*6*1024*4 B of scales, about 6.7 MB, so about 2.0 us. Only rows
 // 0 .. pos are read.
 //
-// Design. One CTA per (stream, head) walked its pages one after another
-// (48 CTAs for 132 SMs at t5_small, one 16-byte load in flight per thread,
-// two block reductions per page): 3.7 % of the byte bound. Now:
+// Design:
 //   * split-KV: the live rows [0, pos] of a (stream, head) are cut into
 //     contiguous ranges of `split_rows` rows, one CTA each (grid
-//     S*H x nsplit). The host picks split_rows, a multiple of 64 and at
-//     least 128, so the grid covers the card about three times, the CTAs
-//     an SM holds at once (t5_small, pos 1023: 48 x 8 CTAs of 128 rows,
-//     one step of every warp); when S*H alone fills the card, or
-//     the live rows are few, there is one range and the CTA writes the
-//     output itself. Otherwise each CTA writes a
-//     partial softmax state (its max m, normaliser l, accumulator acc[dk])
-//     and paged_decode_merge_kernel, launched right after on the same
-//     stream, rescales the partials by exp(m_i - m), sums them and writes
-//     the output. A range that starts past pos writes the empty partial
+//     S*H x nsplit). paged_decode_split_rows picks split_rows, a multiple
+//     of 64 and at least 128, so the grid covers the card about three
+//     times, the CTAs an SM holds at once (t5_small, pos 1023: 48 x 8 CTAs
+//     of 128 rows, one step of every warp); when S*H alone fills the card,
+//     or the live rows are few, there is one range and the CTA writes the
+//     output itself. Otherwise each CTA writes a partial softmax state
+//     (its max m, normaliser l, accumulator acc[dk]) and
+//     paged_decode_merge_kernel, launched right after on the same stream,
+//     rescales the partials by exp(m_i - m), sums them and writes the
+//     output. A range that starts past pos writes the empty partial
 //     (m = -1e30, l = 0), which the merge weighs by 0;
 //   * warps own their rows: a row of dk values is C = dk*sizeof(T)/16
 //     chunks of 16 bytes, lane t of a warp owns chunk t % C of row group
@@ -48,16 +47,12 @@
 //     its own online-softmax state (m warp-uniform, l and acc per lane)
 //     over its rows, and the four warps merge once at the end through
 //     shared memory: no barrier inside the loop;
-//   * bytes in flight: each lane starts the loads of the K and V chunks
-//     of U = 4 rows, with their scales and bias buckets, before the first
+//   * bytes in flight: each lane loads the K and V chunks of U = 4 rows
+//     into registers, with their scales and bias buckets, before the first
 //     dot product, so a warp has 4 KB of K and V in flight per step (int8,
-//     dk = 64);
-//     the first step's loads go out before the prologue's (q, the bias
-//     table) and its barrier. int8 values become floats by a byte
-//     permute and an add, not the quarter-rate I2F. A
-//     variant (STAGED) instead stages the next step's K and V chunks in
-//     shared memory with cp.async while computing the current step;
-//     PERF.md holds both times;
+//     dk = 64); the first step's loads go out before the prologue's (q,
+//     the bias table) and its barrier. int8 values become floats by a byte
+//     permute and an add, not the quarter-rate I2F;
 //   * fp32 accumulation throughout; the T5 bias gathers the port's own
 //     bucket-by-distance table, so the bucket boundaries equal those of
 //     the dense path bit for bit.
@@ -67,16 +62,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernels.h"
+
 namespace {
 
 constexpr int NT = 128;
 constexpr int NWARPS = NT / 32;
 constexpr int U = 4;  // rows per lane per step
-constexpr int MAX_BLOCK = 256;
-constexpr int MAX_BUCKETS = 256;
 constexpr int SPLIT_ALIGN = 64;
 constexpr int MIN_SPLIT_ROWS = 128;
-constexpr int CTAS_PER_SM = 3;  // resident at 165 registers a thread
+constexpr int CTAS_PER_SM = 3;  // resident at about 160 registers a thread
 constexpr int MAX_SPLITS = 4096;  // the merge keeps one float per range in shared memory
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -138,20 +133,6 @@ __device__ __forceinline__ uint4 ld16(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 struct Params {
   const void* q;
   const void* k;
@@ -167,20 +148,17 @@ struct Params {
   int n_dist, num_buckets, S, H, NB, block, pos, split_rows, nsplit;
 };
 
-template <typename TQ, typename TKV, int C, bool STAGED>
+template <typename TQ, typename TKV, int C>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(const Params p) {
   using CK = Chunk<TKV>;
   constexpr int VALS = CK::VALS;
   constexpr int DK = C * VALS;
   constexpr int G = 32 / C;   // row groups of a warp
   constexpr int RW = G * U;   // rows of a warp step
-  constexpr int SW = STAGED ? NWARPS : 1;
-  constexpr int SR = STAGED ? 2 * RW * C : 1;  // K chunks, then V chunks
 
-  __shared__ float s_tab[MAX_BUCKETS];
+  __shared__ float s_tab[PAGED_MAX_BUCKETS];
   __shared__ float s_m[NWARPS], s_l[NWARPS];
   __shared__ float s_acc[NWARPS][DK];
-  __shared__ uint4 s_stage[SW][2][SR];
 
   const int sh = blockIdx.x;  // s * H + h
   const int s = sh / p.H;
@@ -208,23 +186,17 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const Params p) {
   float ksc[U], vsc[U], bias[U];
   int bkt[U];
   bool ok[U];
-  // the K and V chunks of the step at row b0: into registers, or (STAGED)
-  // into half `sbuf` of the warp's staging buffer with cp.async
-  auto load_kv = [&](int b0, int sbuf) {
+  // the K and V chunks of the step at row b0
+  auto load_kv = [&](int b0) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = b0 + u * G + g;
-      if constexpr (!STAGED) kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       if (j < r1) {
         int b, jl;
         const size_t off = row_of(j, b, jl) * DK + c * VALS;
-        if constexpr (STAGED) {
-          cp_async16(&s_stage[warp][sbuf][(u * G + g) * C + c], kb + off);
-          cp_async16(&s_stage[warp][sbuf][RW * C + (u * G + g) * C + c], vb + off);
-        } else {
-          kr[u] = ld16(kb + off);
-          vr[u] = ld16(vb + off);
-        }
+        kr[u] = ld16(kb + off);
+        vr[u] = ld16(vb + off);
       }
     }
   };
@@ -258,12 +230,10 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const Params p) {
   // barrier, so their latencies overlap
   constexpr int STRIDE = NWARPS * RW;
   int base = r0 + warp * RW;
-  int buf = 0;
   if (base < r1) {
-    load_kv(base, 0);
+    load_kv(base);
     load_scalars(base);
   }
-  if constexpr (STAGED) cp_async_commit();
 
   float qr[VALS];
   const TQ* qp = static_cast<const TQ*>(p.q) + static_cast<size_t>(sh) * DK + c * VALS;
@@ -281,20 +251,6 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const Params p) {
 
   // the trip count is warp-uniform, so the shuffles below are safe
   while (base < r1) {
-    const int next = base + STRIDE;
-    if constexpr (STAGED) {
-      if (next < r1) load_kv(next, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();  // this step's group has landed (each lane reads
-                           // back only the chunks it copied itself)
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-        kr[u] = ok[u] ? s_stage[warp][buf][(u * G + g) * C + c] : zero;
-        vr[u] = ok[u] ? s_stage[warp][buf][RW * C + (u * G + g) * C + c] : zero;
-      }
-    }
-
     float lg[U];
     float mx = NEG_INF;
 #pragma unroll
@@ -330,10 +286,9 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const Params p) {
     }
     m = m_new;
 
-    base = next;
-    buf ^= 1;
+    base += STRIDE;
     if (base < r1) {
-      if constexpr (!STAGED) load_kv(base, 0);
+      load_kv(base);
       load_scalars(base);
     }
   }
@@ -431,10 +386,10 @@ __global__ void __launch_bounds__(merge_threads<DK>()) paged_decode_merge_kernel
   store(out + static_cast<size_t>(sh) * DK + d, sum / fmaxf(s_l, 1e-30f));
 }
 
-template <typename TQ, typename TKV, int C, bool STAGED>
+template <typename TQ, typename TKV, int C>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int DK = C * Chunk<TKV>::VALS;
-  paged_decode_kernel<TQ, TKV, C, STAGED>
+  paged_decode_kernel<TQ, TKV, C>
       <<<dim3(p.S * p.H, p.nsplit), NT, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.nsplit == 1) return err;
@@ -444,44 +399,36 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV, bool STAGED>
+template <typename TQ, typename TKV>
 cudaError_t dispatch_dk(int dk, const Params& p, cudaStream_t stream) {
   constexpr int VALS = Chunk<TKV>::VALS;
   switch (dk) {
-    case 16: return launch<TQ, TKV, 16 / VALS, STAGED>(p, stream);
-    case 32: return launch<TQ, TKV, 32 / VALS, STAGED>(p, stream);
-    case 64: return launch<TQ, TKV, 64 / VALS, STAGED>(p, stream);
-    case 128: return launch<TQ, TKV, 128 / VALS, STAGED>(p, stream);
+    case 16: return launch<TQ, TKV, 16 / VALS>(p, stream);
+    case 32: return launch<TQ, TKV, 32 / VALS>(p, stream);
+    case 64: return launch<TQ, TKV, 64 / VALS>(p, stream);
+    case 128: return launch<TQ, TKV, 128 / VALS>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename TQ, typename TKV>
-cudaError_t dispatch_staged(int staged, int dk, const Params& p, cudaStream_t stream) {
-  return staged ? dispatch_dk<TQ, TKV, true>(dk, p, stream)
-                : dispatch_dk<TQ, TKV, false>(dk, p, stream);
-}
-
 template <typename TQ>
-cudaError_t dispatch_kv(int kv_dtype, int staged, int dk, const Params& p,
-                        cudaStream_t stream) {
+cudaError_t dispatch_kv(int kv_dtype, int dk, const Params& p, cudaStream_t stream) {
   switch (kv_dtype) {
-    case 0: return dispatch_staged<TQ, float>(staged, dk, p, stream);
-    case 1: return dispatch_staged<TQ, __nv_bfloat16>(staged, dk, p, stream);
-    case 2: return dispatch_staged<TQ, int8_t>(staged, dk, p, stream);
+    case 0: return dispatch_dk<TQ, float>(dk, p, stream);
+    case 1: return dispatch_dk<TQ, __nv_bfloat16>(dk, p, stream);
+    case 2: return dispatch_dk<TQ, int8_t>(dk, p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Rows per range for `rows` live rows of S*H (stream, head) pairs on a
-// card of `sms` SMs: all of them (one range) when S*H fills the card,
-// else a multiple of 64 such that the grid covers the card about
-// CTAS_PER_SM times (as many CTAs as an SM holds at once, so every range
-// is in flight together), but at least MIN_SPLIT_ROWS: below that the
-// merge costs more than the range saves. PERF.md has the sweep over range
-// sizes (chip_smoke.time_kernel) that chose both.
+// All the live rows (one range) when S*H fills the card, else a multiple
+// of 64 such that the grid covers the card about CTAS_PER_SM times (as
+// many CTAs as an SM holds at once, so every range is in flight
+// together), but at least MIN_SPLIT_ROWS: below that the merge costs more
+// than the range saves. PERF.md has the sweep over range sizes that chose
+// both.
 extern "C" int paged_decode_split_rows(int S, int H, int rows, int sms) {
   const int pairs = S * H;
   if (pairs >= sms || rows <= MIN_SPLIT_ROWS) return rows;
@@ -490,19 +437,13 @@ extern "C" int paged_decode_split_rows(int S, int H, int rows, int sms) {
   return max((per + SPLIT_ALIGN - 1) / SPLIT_ALIGN * SPLIT_ALIGN, MIN_SPLIT_ROWS);
 }
 
-// dtype codes: 0 = fp32, 1 = bf16, 2 = int8 (pages only). Pointers that a
-// mode does not use are null. The rows [0, nsplit*split_rows) are cut into
-// nsplit ranges; with nsplit > 1, `work` holds S*H*nsplit*(2 + dk) floats.
-// Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
-// for a combination that has no instance.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k, const void* v, const float* ks,
     const float* vs, const float* rel_table, const int32_t* dist_buckets,
     int n_dist, int num_buckets, const float* bias_row, void* out,
     float* work, int S, int H, int NB, int block, int dk, int pos,
-    int split_rows, int nsplit, int q_dtype, int kv_dtype, int staged,
-    void* stream) {
-  if (block < 1 || block > MAX_BLOCK || num_buckets > MAX_BUCKETS || S < 1 ||
+    int split_rows, int nsplit, int q_dtype, int kv_dtype, void* stream) {
+  if (block < 1 || block > PAGED_MAX_BLOCK || num_buckets > PAGED_MAX_BUCKETS || S < 1 ||
       H < 1 || NB < 1 || pos < 0 || split_rows < 1 || nsplit < 1 ||
       nsplit > MAX_SPLITS || (nsplit > 1 && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -512,9 +453,9 @@ extern "C" int paged_decode_attention_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_dtype == 0)
-    err = dispatch_kv<float>(kv_dtype, staged, dk, p, st);
+    err = dispatch_kv<float>(kv_dtype, dk, p, st);
   else if (q_dtype == 1)
-    err = dispatch_kv<__nv_bfloat16>(kv_dtype, staged, dk, p, st);
+    err = dispatch_kv<__nv_bfloat16>(kv_dtype, dk, p, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

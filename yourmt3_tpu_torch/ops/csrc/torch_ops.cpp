@@ -1,11 +1,12 @@
 // PyTorch operators for the port's hand-written CUDA kernels.
 //
 // This is the one translation unit of the build that includes torch
-// headers: the kernels (*.cu) keep plain C launch functions, so editing a
-// kernel recompiles only its own file. Each operator checks its arguments
-// here (ValueError and TypeError in Python, with the messages the Python
-// checks had), allocates its output and scratch with at::empty, and
-// launches on the current stream under a device guard. The operators are
+// headers: the kernels (*.cu) keep plain C launch functions, declared with
+// their limits in kernels.h, so editing a kernel recompiles only its own
+// file. Each operator checks its arguments here (ValueError and TypeError
+// in Python, with the messages the Python checks had), allocates its
+// output and scratch with at::empty, and launches on the current stream
+// under a device guard. The operators are
 // registered for CUDA only: the Python wrappers send CPU tensors to the
 // plain versions, and nothing falls back from one to the other.
 //
@@ -16,10 +17,8 @@
 //   torch.ops.yourmt3_tpu_torch.launch_probe             csrc/launch_probe.cu
 
 #include <ATen/core/Tensor.h>
-#include <ATen/ops/constant_pad_nd.h>
 #include <ATen/ops/empty.h>
 #include <ATen/ops/reflection_pad1d.h>
-#include <ATen/ops/stack.h>
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -29,39 +28,13 @@
 #include <initializer_list>
 #include <vector>
 
-extern "C" {
-int paged_decode_split_rows(int S, int H, int rows, int sms);
-int paged_decode_attention_launch(
-    const void* q, const void* k, const void* v, const float* ks,
-    const float* vs, const float* rel_table, const int32_t* dist_buckets,
-    int n_dist, int num_buckets, const float* bias_row, void* out,
-    float* work, int S, int H, int NB, int block, int dk, int pos,
-    int split_rows, int nsplit, int q_dtype, int kv_dtype, int staged,
-    void* stream);
-int int4_cross_attention_launch(const void* q, const void* k4, const void* ks,
-                                const void* v4, const void* vs, void* out,
-                                int S, int H, int dk, int T, int q_dtype,
-                                void* stream);
-int fused_logmel_launch(const void* padded, const void* cs, const void* mel,
-                        void* out, int B, int Lp, int T, int n_fft, int hop,
-                        int Fp, int M, float log_offset, int power2,
-                        int frames_per_thread, void* stream);
-int launch_probe_launch(const void* x, void* out, int n, void* stream);
-}
+#include "kernels.h"
 
 namespace {
 
 using at::Tensor;
 using c10::ScalarType;
 using OptTensor = c10::optional<Tensor>;
-
-constexpr int64_t MAX_BLOCK = 256;
-constexpr int64_t MAX_BUCKETS = 256;
-constexpr int64_t MAX_SPLITS = 4096;   // paged: the merge's shared-memory weights
-constexpr int64_t MAX_T = 4096;        // int4: the logits row lives in shared memory
-constexpr int64_t DFT_BLOCK = 32;      // fused log-mel: samples per partial DFT sum
-constexpr int64_t FREQ_TILE = 128;     // fused log-mel: bins per frequency tile
-constexpr int64_t MAX_MELS = 512;
 
 bool is_dk(int64_t dk) { return dk == 16 || dk == 32 || dk == 64 || dk == 128; }
 
@@ -121,16 +94,11 @@ Tensor as_3d(const Tensor& q) {
   return q;
 }
 
-// [nsplit, split_rows] for live rows [0, pos] of S*H pairs on the current
-// card, or for ranges of `split_rows` over the whole cache of L rows
-std::vector<int64_t> splits_for(int64_t S, int64_t H, int64_t pos, int64_t L,
-                                int64_t split_rows, c10::DeviceIndex dev) {
-  int64_t rows = pos + 1;
-  if (split_rows == 0)
-    split_rows = paged_decode_split_rows(static_cast<int>(S), static_cast<int>(H),
-                                         static_cast<int>(rows), sm_count(dev));
-  else
-    rows = L;
+// [nsplit, split_rows] for live rows [0, pos] of S*H pairs on card `dev`
+std::vector<int64_t> splits_for(int64_t S, int64_t H, int64_t pos, c10::DeviceIndex dev) {
+  const int64_t rows = pos + 1;
+  const int64_t split_rows = paged_decode_split_rows(
+      static_cast<int>(S), static_cast<int>(H), static_cast<int>(rows), sm_count(dev));
   return {(rows + split_rows - 1) / split_rows, split_rows};
 }
 
@@ -138,8 +106,7 @@ Tensor paged_decode_attention(const Tensor& q, const Tensor& k_cache,
                               const Tensor& v_cache, int64_t pos,
                               const OptTensor& bias_row, const OptTensor& rel_table,
                               const OptTensor& dist_buckets, const OptTensor& k_scale,
-                              const OptTensor& v_scale, int64_t split_rows,
-                              bool staged) {
+                              const OptTensor& v_scale) {
   TORCH_CHECK_VALUE(!(bias_row.has_value() && rel_table.has_value()),
                     "bias_row and rel_table are mutually exclusive");
   TORCH_CHECK_VALUE(k_scale.has_value() == v_scale.has_value(),
@@ -163,8 +130,8 @@ Tensor paged_decode_attention(const Tensor& q, const Tensor& k_cache,
     check(*v_scale, "v_scale", q3, "q", {ScalarType::Float}, sc);
   }
   TORCH_CHECK_VALUE(is_dk(dk), "dk=", dk, " not in (16, 32, 64, 128)");
-  TORCH_CHECK_VALUE(1 <= block && block <= MAX_BLOCK, "block=", block,
-                    " must be in [1, ", MAX_BLOCK, "]");
+  TORCH_CHECK_VALUE(1 <= block && block <= PAGED_MAX_BLOCK, "block=", block,
+                    " must be in [1, ", PAGED_MAX_BLOCK, "]");
   TORCH_CHECK_VALUE(0 <= pos && pos < L, "pos=", pos, " outside [0, ", L, ")");
   for (const Tensor* t : {&k_cache, &v_cache})
     TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
@@ -174,7 +141,8 @@ Tensor paged_decode_attention(const Tensor& q, const Tensor& k_cache,
     num_buckets = rel_table->size(0);
     check(*rel_table, "rel_table", q3, "q", {ScalarType::Float},
           std::vector<int64_t>{num_buckets, H});
-    TORCH_CHECK_VALUE(num_buckets <= MAX_BUCKETS, num_buckets, " buckets > ", MAX_BUCKETS);
+    TORCH_CHECK_VALUE(num_buckets <= PAGED_MAX_BUCKETS, num_buckets, " buckets > ",
+                      PAGED_MAX_BUCKETS);
     TORCH_CHECK_VALUE(dist_buckets.has_value(), "rel_table needs dist_buckets");
     check(*dist_buckets, "dist_buckets", q3, "q", {ScalarType::Int});
     TORCH_CHECK_VALUE(dist_buckets->dim() == 1, "dist_buckets must be 1-D");
@@ -183,13 +151,10 @@ Tensor paged_decode_attention(const Tensor& q, const Tensor& k_cache,
   if (bias_row.has_value())
     check(*bias_row, "bias_row", q3, "q", {ScalarType::Float},
           std::vector<int64_t>{H, L});
-  TORCH_CHECK_VALUE(split_rows >= 0, "split_rows=", split_rows, " must be >= 0");
 
   const c10::cuda::CUDAGuard guard(q.device());
-  const std::vector<int64_t> sp = splits_for(S, H, pos, L, split_rows, q.device().index());
+  const std::vector<int64_t> sp = splits_for(S, H, pos, q.device().index());
   const int64_t nsplit = sp[0];
-  TORCH_CHECK_VALUE(nsplit <= MAX_SPLITS, "split_rows=", split_rows, " cuts the cache into ",
-                    nsplit, " ranges, more than ", MAX_SPLITS);
   Tensor out = at::empty({S, H, dk}, q.options());
   Tensor work;
   if (nsplit > 1) work = at::empty({S * H * nsplit * (2 + dk)}, q.options().dtype(at::kFloat));
@@ -203,7 +168,7 @@ Tensor paged_decode_attention(const Tensor& q, const Tensor& k_cache,
       static_cast<int>(H), static_cast<int>(NB), static_cast<int>(block),
       static_cast<int>(dk), static_cast<int>(pos), static_cast<int>(sp[1]),
       static_cast<int>(nsplit), dtype_code(q.scalar_type()),
-      dtype_code(k_cache.scalar_type()), staged ? 1 : 0, stream_of(q));
+      dtype_code(k_cache.scalar_type()), stream_of(q));
   check_launch(err, "paged_decode_attention");
   return q.dim() == 4 ? out.unsqueeze(2) : out;
 }
@@ -211,7 +176,7 @@ Tensor paged_decode_attention(const Tensor& q, const Tensor& k_cache,
 std::vector<int64_t> paged_decode_splits(int64_t streams, int64_t heads, int64_t pos) {
   TORCH_CHECK_VALUE(streams >= 1 && heads >= 1 && pos >= 0,
                     "paged_decode_splits takes streams, heads >= 1 and pos >= 0");
-  return splits_for(streams, heads, pos, 0, 0, c10::cuda::current_device());
+  return splits_for(streams, heads, pos, c10::cuda::current_device());
 }
 
 Tensor int4_cross_attention(const Tensor& q, const Tensor& k4, const Tensor& ks,
@@ -221,7 +186,7 @@ Tensor int4_cross_attention(const Tensor& q, const Tensor& k4, const Tensor& ks,
   TORCH_CHECK_VALUE(is_dk(dk), "dk=", dk, " not in (16, 32, 64, 128)");
   TORCH_CHECK_VALUE(k4.dim() == 4, "k4 must be (S, H, dk/2, T), got ", k4.sizes());
   const int64_t T = k4.size(3);
-  TORCH_CHECK_VALUE(1 <= T && T <= MAX_T, "T=", T, " outside [1, ", MAX_T, "]");
+  TORCH_CHECK_VALUE(1 <= T && T <= INT4_MAX_T, "T=", T, " outside [1, ", INT4_MAX_T, "]");
   check(q3, "q", q3, "q", {ScalarType::Float, ScalarType::BFloat16});
   const std::vector<int64_t> packed{S, H, dk / 2, T}, scales{S, H, T};
   for (const Tensor* t : {&k4, &v4}) {
@@ -243,47 +208,31 @@ Tensor int4_cross_attention(const Tensor& q, const Tensor& k4, const Tensor& ks,
   return q.dim() == 4 ? out.unsqueeze(2) : out;
 }
 
-Tensor fused_logmel(const Tensor& audio, const Tensor& basis_cos, const Tensor& basis_sin,
-                    const Tensor& mel_fb, const OptTensor& packed_cs,
-                    const OptTensor& packed_mel, int64_t input_frames,
-                    int64_t num_frames, int64_t n_fft, int64_t hop_length,
+// cs (n_fft, 2, Fp) and mel (Fp, n_mels): the layout of
+// ops/fused_logmel.py:pack_bases
+Tensor fused_logmel(const Tensor& audio, const Tensor& cs, const Tensor& mel,
+                    int64_t input_frames, int64_t num_frames, int64_t hop_length,
                     double log_offset, bool power2, int64_t frames_per_thread) {
   TORCH_CHECK_VALUE(audio.dim() == 2 && audio.size(1) == input_frames, "audio must be (B, ",
                     input_frames, "), got ", audio.sizes());
-  TORCH_CHECK_VALUE(packed_cs.has_value() == packed_mel.has_value(),
-                    "packed cos/sin and packed mel come together");
-  const int64_t n_bins = n_fft / 2 + 1;
-  TORCH_CHECK_VALUE(mel_fb.dim() == 2, "mel_fb must be (n_bins, n_mels), got ",
-                    mel_fb.sizes());
-  const int64_t n_mels = mel_fb.size(1);
-  TORCH_CHECK_VALUE(n_fft % DFT_BLOCK == 0, "n_fft=", n_fft, ": the kernel takes a multiple of ",
-                    DFT_BLOCK);
-  TORCH_CHECK_VALUE(n_mels % 32 == 0 && 32 <= n_mels && n_mels <= MAX_MELS, "n_mels=", n_mels,
-                    ": the kernel takes a multiple of 32 up to ", MAX_MELS);
+  TORCH_CHECK_VALUE(cs.dim() == 3 && cs.size(1) == 2, "packed cos/sin must be (n_fft, 2, Fp), got ",
+                    cs.sizes());
+  TORCH_CHECK_VALUE(mel.dim() == 2, "packed mel must be (Fp, n_mels), got ", mel.sizes());
+  const int64_t n_fft = cs.size(0), fp = cs.size(2), n_mels = mel.size(1);
+  TORCH_CHECK_VALUE(n_fft % LOGMEL_DFT_BLOCK == 0, "n_fft=", n_fft,
+                    ": the kernel takes a multiple of ", LOGMEL_DFT_BLOCK);
+  TORCH_CHECK_VALUE(fp % LOGMEL_FREQ_TILE == 0, "packed cos/sin has ", fp,
+                    " bins: the kernel takes a multiple of ", LOGMEL_FREQ_TILE);
+  TORCH_CHECK_VALUE(n_mels % 32 == 0 && 32 <= n_mels && n_mels <= LOGMEL_MAX_MELS, "n_mels=",
+                    n_mels, ": the kernel takes a multiple of 32 up to ", LOGMEL_MAX_MELS);
   TORCH_CHECK_VALUE(frames_per_thread == 1 || frames_per_thread == 2 || frames_per_thread == 4,
                     "frames_per_thread=", frames_per_thread, " not in (1, 2, 4)");
   check(audio, "audio", audio, "audio", {ScalarType::Float});
-  const std::vector<int64_t> basis{n_fft, n_bins};
-  check(basis_cos, "basis_cos", audio, "audio", {ScalarType::Float}, basis);
-  check(basis_sin, "basis_sin", audio, "audio", {ScalarType::Float}, basis);
-  check(mel_fb, "mel_fb", audio, "audio", {ScalarType::Float},
-        std::vector<int64_t>{n_bins, n_mels});
-  const int64_t fp = (n_bins + FREQ_TILE - 1) / FREQ_TILE * FREQ_TILE;
-
-  const c10::cuda::CUDAGuard guard(audio.device());
-  Tensor cs, mel;
-  if (packed_cs.has_value()) {
-    cs = *packed_cs;
-    mel = *packed_mel;
-  } else {  // the layout of fused_logmel.pack_bases
-    cs = at::stack({at::constant_pad_nd(basis_cos, {0, fp - n_bins}),
-                    at::constant_pad_nd(basis_sin, {0, fp - n_bins})}, 1);
-    mel = at::constant_pad_nd(mel_fb, {0, 0, 0, fp - n_bins});
-  }
-  check(cs, "packed cos/sin", audio, "audio", {ScalarType::Float},
-        std::vector<int64_t>{n_fft, 2, fp});
+  check(cs, "packed cos/sin", audio, "audio", {ScalarType::Float});
   check(mel, "packed mel", audio, "audio", {ScalarType::Float},
         std::vector<int64_t>{fp, n_mels});
+
+  const c10::cuda::CUDAGuard guard(audio.device());
   const Tensor padded = at::reflection_pad1d(audio, {n_fft / 2, n_fft / 2}).contiguous();
   const int64_t B = audio.size(0);
   Tensor out = at::empty({B, num_frames, n_mels}, audio.options());
@@ -313,16 +262,14 @@ Tensor launch_probe(const Tensor& x) {
 TORCH_LIBRARY(yourmt3_tpu_torch, m) {
   m.def("paged_decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, int pos, "
         "Tensor? bias_row=None, Tensor? rel_table=None, Tensor? dist_buckets=None, "
-        "Tensor? k_scale=None, Tensor? v_scale=None, int split_rows=0, "
-        "bool staged=False) -> Tensor");
+        "Tensor? k_scale=None, Tensor? v_scale=None) -> Tensor");
   m.def("paged_decode_splits(int streams, int heads, int pos) -> int[]",
         &paged_decode_splits);
   m.def("int4_cross_attention(Tensor q, Tensor k4, Tensor ks, Tensor v4, Tensor vs) "
         "-> Tensor");
-  m.def("fused_logmel(Tensor audio, Tensor basis_cos, Tensor basis_sin, Tensor mel_fb, "
-        "Tensor? packed_cs, Tensor? packed_mel, int input_frames, int num_frames, "
-        "int n_fft, int hop_length, float log_offset, bool power2, int frames_per_thread) "
-        "-> Tensor");
+  m.def("fused_logmel(Tensor audio, Tensor cs, Tensor mel, int input_frames, "
+        "int num_frames, int hop_length, float log_offset, bool power2, "
+        "int frames_per_thread) -> Tensor");
   m.def("launch_probe(Tensor x) -> Tensor");
 }
 

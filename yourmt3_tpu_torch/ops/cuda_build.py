@@ -1,21 +1,27 @@
 """Build and load the port's hand-written CUDA kernels as PyTorch operators.
 
 Each kernel under `ops/csrc/` (`<name>.cu`) keeps a plain C launch
-function and includes no torch header. `csrc/torch_ops.cpp`, the one
-translation unit that includes torch's headers, checks the arguments and
-registers the operators `torch.ops.yourmt3_tpu_torch.<name>` for CUDA.
-At first use every stale source is compiled with `nvcc -c` (the kernels
-for sm_90a), all compiles started together, and `nvcc` links the objects
-with torch's libraries into one library,
-`yourmt3_tpu_torch/build/libyourmt3_ops.so` (listed in .gitignore), which
-`torch.ops.load_library` loads once. An object newer than its source and a
-library newer than every object are reused, so editing a kernel does not
-recompile the torch headers. Nothing here runs at import time, and
+function, declared with the kernels' limits in `csrc/kernels.h`, and
+includes no torch header. `csrc/torch_ops.cpp`, the one translation unit
+that includes torch's headers, checks the arguments and registers the
+operators `torch.ops.yourmt3_tpu_torch.<name>` for CUDA. At first use
+every stale source is compiled with `nvcc -c` (the kernels for sm_90a),
+all compiles started together, and `nvcc` links the objects with torch's
+libraries into one library, `yourmt3_tpu_torch/build/libyourmt3_ops.so`
+(listed in .gitignore), which `torch.ops.load_library` loads once.
+
+An object newer than its source and than `kernels.h` is reused, and so is
+a library newer than every object, so editing a kernel does not recompile
+the torch headers. A stamp beside the library records the toolchain: the
+version of torch, the output of `nvcc --version` and the build's command
+lines (flags, include and library paths, the ABI define). When it
+differs, every source recompiles. Nothing here runs at import time, and
 nothing falls back: a failed build or load raises.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import subprocess
@@ -27,6 +33,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file_
 KERNELS = ("paged_decode_attention", "int4_cross_attention", "fused_logmel",
            "launch_probe")
 BINDING = "torch_ops"
+HEADER = "kernels.h"
 LIBRARY = os.path.join(BUILD_DIR, "libyourmt3_ops.so")
 NAMESPACE = "yourmt3_tpu_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -90,6 +97,23 @@ def _newer(path: str, than: str) -> bool:
     return os.path.exists(path) and os.path.getmtime(path) >= os.path.getmtime(than)
 
 
+def _stamp(cmds: List[List[str]]) -> str:
+    """The toolchain the objects were built with: torch's version, nvcc's
+    own report of its version, and the command lines."""
+    import torch
+    nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    return json.dumps({"torch": str(torch.__version__), "nvcc": nvcc,
+                       "commands": cmds}, indent=1)
+
+
+def _read(path: str) -> str:
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
 def _run_all(cmds: List[List[str]]) -> None:
     """Run the commands together; rename each one's output when it
     succeeds, then raise with the log of each that failed."""
@@ -109,16 +133,25 @@ def _run_all(cmds: List[List[str]]) -> None:
 
 
 def build() -> str:
-    """Compile every stale source (all at once), link if any object is newer
-    than the library; → the library's path."""
+    """Compile every stale source (all at once; every source when the
+    toolchain's stamp differs), link if any object is newer than the
+    library; → the library's path."""
     names = (*KERNELS, BINDING)
-    stale = [i for i, n in enumerate(names) if not _newer(_object(n), _source(n))]
+    cmds = build_commands()
+    stamp, stamp_path = _stamp(cmds), LIBRARY + ".stamp"
+    same = _read(stamp_path) == stamp
+    header = os.path.join(CSRC, HEADER)
+    stale = [i for i, n in enumerate(names)
+             if not (same and _newer(_object(n), _source(n)) and _newer(_object(n), header))]
     if not stale and all(_newer(LIBRARY, _object(n)) for n in names):
         return LIBRARY
     os.makedirs(BUILD_DIR, exist_ok=True)
-    *compiles, link = build_commands()
+    *compiles, link = cmds
     _run_all([compiles[i] for i in stale])
     _run_all([link])
+    with open(stamp_path + ".tmp", "w") as f:
+        f.write(stamp)
+    os.replace(stamp_path + ".tmp", stamp_path)
     return LIBRARY
 
 

@@ -88,9 +88,10 @@ def paged_decode_attention_split_plain(
 ) -> torch.Tensor:
     """The kernel's split-KV algebra in plain PyTorch (fp32), for the tests.
 
-    The cache's rows [0, L) are cut into ranges of `split_rows`, as the
-    kernel cuts them when given `split_rows` (and as a position held on
-    the device would need). Each range keeps the partial softmax state of
+    The cache's rows [0, L) are cut into ranges of `split_rows`. The
+    kernel cuts only the live rows [0, pos]; cutting the whole cache also
+    covers ranges wholly past pos, as a position held on the device would
+    give. Each range keeps the partial softmax state of
     its live rows (j <= pos): max m_i, normaliser l_i = Σ exp(x - m_i) and
     unnormalised accumulator acc_i = Σ exp(x - m_i) · v_scale · V; a range
     wholly past pos keeps m_i = NEG_INF, l_i = 0, acc_i = 0. The merge
@@ -183,10 +184,7 @@ paged_decode_attention.launches = 0  # kernel launches since the last reset
 
 def decode_splits(streams: int, heads: int, pos: int):
     """(ranges, rows per range) that the kernel picks on the current card
-    for `streams` x `heads` pairs at decode position `pos`. (The operator
-    also takes `split_rows`, which cuts the whole cache into ranges of
-    that many rows, and `staged`, the cp.async-staged loads; the tests
-    and chip_smoke.py's measurements set them.)"""
+    for `streams` x `heads` pairs at decode position `pos`."""
     return tuple(cuda_build.op("paged_decode_splits")(streams, heads, pos))
 
 

@@ -24,8 +24,9 @@ import torch.nn.functional as F
 from ..config.audio import AudioConfig
 from . import cuda_build
 
-FREQ_TILE = 128  # bins per kernel frequency tile
-DFT_BLOCK = 32  # samples per partial DFT sum (KB in the kernel)
+# the kernel's LOGMEL_FREQ_TILE and LOGMEL_DFT_BLOCK (csrc/kernels.h)
+FREQ_TILE = 128  # bins per frequency tile
+DFT_BLOCK = 32  # samples per partial DFT sum
 
 
 def reflect_pad(audio: torch.Tensor, n_fft: int) -> torch.Tensor:
@@ -92,19 +93,18 @@ def fused_logmel(audio: torch.Tensor, basis_cos: torch.Tensor,
     basis_* are the window-folded DFT bases (n_fft, n_bins), mel_fb
     (n_bins, n_mels); `packed` is their `pack_bases` layout, made here
     when not given. CPU tensors go to the plain version; CUDA tensors
-    launch the kernel through its operator, which checks the arguments
-    (and count one launch), or raise."""
+    launch the kernel through its operator, which takes the packed
+    layout and checks the arguments (and count one launch), or raise."""
     if audio.is_cpu:
         return fused_logmel_plain(audio, basis_cos, basis_sin, mel_fb, cfg)
     global _op
     if _op is None:
         _op = cuda_build.op("fused_logmel")
-    cs, mel = packed or (None, None)
+    cs, mel = packed if packed is not None else pack_bases(basis_cos, basis_sin, mel_fb)
     sms = torch.cuda.get_device_properties(audio.device).multi_processor_count
     fpt = frames_per_thread(audio.shape[0], cfg.num_frames, sms)
-    out = _op(audio, basis_cos, basis_sin, mel_fb, cs, mel, cfg.input_frames,
-              cfg.num_frames, cfg.n_fft, cfg.hop_length, float(cfg.log_offset),
-              cfg.power == 2.0, fpt)
+    out = _op(audio, cs, mel, cfg.input_frames, cfg.num_frames, cfg.hop_length,
+              float(cfg.log_offset), cfg.power == 2.0, fpt)
     fused_logmel.launches += 1
     return out
 
