@@ -401,51 +401,85 @@ def logmel_frontend(dev):
 
 
 def check_logmel(dev):
-    """The fused log-mel kernel against its plain version at full width
-    (32767 samples → 256 frames × 512 mels), B in {1, 8, 16}."""
+    """The fused log-mel kernel against its plain version (the two-level
+    DFT) at full width (32767 samples → 256 frames × 512 mels), B in
+    {1, 8, 16}; beside it the FFT algorithm's plain version, and each
+    route's max and RMS error to the function in float64."""
     import torch
     from yourmt3_tpu_torch.ops import fused_logmel as fl
     fe = logmel_frontend(dev)
+    bases = (fe.basis_cos, fe.basis_sin, fe.mel_fb, fe.cfg)
+    packed = fl.pack_bases(*bases[:3])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0.0
     for B in LOGMEL_BATCHES:
         audio = logmel_audio(B, dev)
         got = fe(audio)
-        want = fl.fused_logmel_plain(audio, fe.basis_cos, fe.basis_sin,
-                                     fe.mel_fb, fe.cfg)
+        want = fl.fused_logmel_plain(audio, *bases)
+        fft = fl.fused_logmel_fft_plain(audio, *bases, packed=packed)
+        ref = fl.fused_logmel_float64(audio, fe.basis_cos, fe.mel_fb, fe.cfg)
         torch.cuda.synchronize()
         assert got.shape == (B, 256, 512) and bool(torch.isfinite(got).all())
         err = (got - want).abs().max().item()
-        log(f"fused_logmel check B={B} (frames per thread "
-            f"{fl.frames_per_thread(B, 256, torch.cuda.get_device_properties(dev).multi_processor_count)}): "
-            f"max|err| {err:.3e} (tol {TOL_LOGMEL})")
+        err_fft = (got - fft).abs().max().item()
+        to64 = {name: ((x.double() - ref).abs().max().item(),
+                       (x.double() - ref).pow(2).mean().sqrt().item())
+                for name, x in (("kernel", got), ("DFT plain", want))}
+        log(f"fused_logmel check B={B} (frames per CTA "
+            f"{fl.frames_per_cta(B, 256, sms)}): max|err| {err:.3e} (tol "
+            f"{TOL_LOGMEL}); to the FFT's plain version {err_fft:.3e}; to "
+            f"float64 (max, RMS): " + ", ".join(
+                f"{name} {mx:.3e}, {rms:.3e}" for name, (mx, rms) in to64.items()))
         assert err <= TOL_LOGMEL, (B, err)
+        assert err_fft <= TOL_LOGMEL, (B, err_fft)
         worst = max(worst, err)
     return worst
 
 
-def bound_logmel(B, cfg):
-    """(ms, "bytes" or "operations"): the DFT (cos and sin) and mel
-    products' fp32 multiply-adds; the audio, both bases, the filterbank
-    and the output each moved once."""
-    n_bins, T = cfg.n_fft // 2 + 1, cfg.num_frames
-    ops = B * (2 * 2 * T * cfg.n_fft * n_bins + 2 * T * n_bins * cfg.n_mels)
-    nbytes = 4 * (B * cfg.input_frames + 2 * cfg.n_fft * n_bins
-                  + n_bins * cfg.n_mels + B * T * cfg.n_mels)
+def bound_logmel(B, cfg, packed):
+    """(ms, "bytes" or "operations"): the function's least time. Bytes:
+    the audio, the packed constants (window, twiddles, mel bands and
+    weights) and the output each moved once. Operations (fp32): the
+    frames' FFTs, two frames to one complex n_fft-point transform of
+    5·N·log2 N; the split and magnitudes, 12 per bin and frame; the band
+    weights, a multiply-add each; one log per output."""
+    n_fft, T, M = cfg.n_fft, cfg.num_frames, cfg.n_mels
+    n_bins = n_fft // 2 + 1
+    nnz = packed[3].numel()
+    ops = B * (-(-T // 2) * 5 * n_fft * int(np.log2(n_fft))
+               + T * (12 * n_bins + 2 * nnz + M))
+    nbytes = (4 * (B * cfg.input_frames + B * T * M)
+              + sum(t.numel() * t.element_size() for t in packed))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bound_logmel_dft(B, cfg):
+    """The TPU kernel's algorithm's bound, for comparison: its DFT (cos and
+    sin) and dense mel products' fp32 multiply-adds, ms."""
+    n_bins, T = cfg.n_fft // 2 + 1, cfg.num_frames
+    ops = B * (2 * 2 * T * cfg.n_fft * n_bins + 2 * T * n_bins * cfg.n_mels)
+    return ops / FP32_FLOPS * 1e3
 
 
 def time_logmel(dev):
     """Kernel, plain version and the cuFFT route (torch.stft with a
     periodic Hann window, center=True, reflect; abs; mel product; log:
-    four calls, not one), each with CUDA events over 10 eager calls, at
-    B = 16 (training) and 8 (serving)."""
+    four calls, not one) at B = 16 (training) and 8 (serving). The
+    kernel's time is the operator (reflect pad and kernel) over CUDA-graph
+    replays, so the wrapper's host time per call does not hide it; beside
+    it the same over 10 eager calls between CUDA events,
+    as the plain version and the cuFFT route are timed. Then the kernel
+    at each tile of frames per CTA, the wrapper's choice marked."""
     import torch
+    from yourmt3_tpu_torch.ops import cuda_build
     from yourmt3_tpu_torch.ops import fused_logmel as fl
     fe = logmel_frontend(dev)
     cfg = fe.cfg
     packed = fl.pack_bases(fe.basis_cos, fe.basis_sin, fe.mel_fb)
+    op = cuda_build.op("fused_logmel")
     win = torch.hann_window(cfg.n_fft, periodic=True, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = {}
     for B in (16, 8):
         audio = logmel_audio(B, dev)
@@ -459,18 +493,37 @@ def time_logmel(dev):
                 spec.abs().transpose(1, 2), fe.mel_fb), min=cfg.log_offset))
 
         lib_err = (library() - fl.fused_logmel(*args, packed=packed)).abs().max().item()
-        b_ms, b_by = bound_logmel(B, cfg)
-        rows[B] = dict(ms=events_ms(lambda: fl.fused_logmel(*args, packed=packed), 10),
+        b_ms, b_by = bound_logmel(B, cfg, packed)
+
+        def kernel(calls=1):
+            for _ in range(calls):
+                fl.fused_logmel(*args, packed=packed)
+
+        def tiled(tile, calls):  # the operator at a given tile, not counted
+            for _ in range(calls):
+                op(audio, *packed, cfg.input_frames, cfg.num_frames, cfg.hop_length,
+                   float(cfg.log_offset), cfg.power == 2.0, tile)
+
+        eager_ms = events_ms(kernel, 10)
+        rows[B] = dict(ms=graph_ms(lambda: kernel(calls=4), 4, replays=10),
                        plain_ms=events_ms(lambda: fl.fused_logmel_plain(*args), 10),
                        library_ms=events_ms(library, 10), bound_ms=b_ms,
                        bound_by=b_by)
         r = rows[B]
-        log(f"time fused_logmel B={B}: kernel {r['ms']:.4f} ms, plain "
+        log(f"time fused_logmel B={B}: kernel {r['ms']:.4f} ms (CUDA graph; "
+            f"eager {eager_ms:.4f} ms), plain "
             f"{r['plain_ms']:.4f} ms, library (cuFFT route: stft, abs, mel "
             f"matmul, log) {r['library_ms']:.4f} ms (max|diff| to the kernel "
             f"{lib_err:.2e}), bound ({b_by}, fp32 {FP32_FLOPS / 1e12:.0f} "
-            f"TFLOP/s outside the tensor cores) {b_ms:.4f} ms = "
-            f"{b_ms / r['ms']:.1%} of the kernel's time")
+            f"TFLOP/s outside the tensor cores, {HBM_BYTES_PER_S / 1e12:.2f} "
+            f"TB/s) {b_ms:.4f} ms = {b_ms / r['ms']:.1%} of the kernel's time; "
+            f"the DFT-GEMM algorithm's operations bound {bound_logmel_dft(B, cfg):.4f} ms")
+        chosen = fl.frames_per_cta(B, cfg.num_frames, sms)
+        tiles = {tile: graph_ms(lambda: tiled(tile, 4), 4, replays=10)
+                 for tile in (2, 4, 8, 16, 32)}
+        log(f"  kernel ms by frames per CTA at B={B}: " + ", ".join(
+            f"{tile}{'*' if tile == chosen else ''} {ms:.4f}"
+            for tile, ms in tiles.items()))
     return rows
 
 

@@ -186,6 +186,47 @@ def test_int4_cross_attention_matches_plain(dev, S, H, T, dk, qdt):
     assert err < TOL[qdt], err
 
 
+@pytest.mark.parametrize("dk", [16, 32, 64, 128])
+@pytest.mark.parametrize("S,T", [(104, 256), (24, 4096)], ids=["one-chunk", "16-chunks"])
+def test_int4_cross_attention_at_full_occupancy(dev, S, T, dk):
+    """Many CTAs on each SM at every width (a copy that lands late shows
+    here, not at S = 8), and T walked in 16 double-buffered chunks."""
+    gen = torch.Generator().manual_seed(S + T + dk)
+    k4, ks, v4, vs = _int4_inputs(S, 6, T, dk, gen, dev)
+    q = torch.randn(S, 6, dk, generator=gen).to(dev)
+    got = ia.int4_cross_attention(q, k4, ks, v4, vs)
+    want = ia.int4_cross_attention_plain(q, k4, ks, v4, vs)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err < TOL[torch.float32], err
+
+
+def _replays_in_a_graph(fn):
+    """fn() captured once in a CUDA graph and replayed three times: each
+    replay gives the eager result, bit for bit."""
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+def test_int4_op_replays_in_a_cuda_graph(dev):
+    gen = torch.Generator().manual_seed(8)
+    k4, ks, v4, vs = _int4_inputs(104, 6, 256, 64, gen, dev)
+    q = torch.randn(104, 6, 64, generator=gen).to(dev, torch.bfloat16)
+    _replays_in_a_graph(lambda: ia.int4_cross_attention(q, k4, ks, v4, vs))
+
+
 def test_int4_wrapper_rejects_what_the_kernel_does_not_take(dev):
     gen = torch.Generator().manual_seed(2)
     k4, ks, v4, vs = _int4_inputs(2, 2, 64, 32, gen, dev)
@@ -230,36 +271,71 @@ def _song(B, n, seed):
     (2, {"power": 2.0}),
 ], ids=["B1", "B8", "B16", "B8-T250", "B3-nfft512", "B2-power2"])
 def test_fused_logmel_matches_plain(dev, B, cfg):
+    """The kernel against its algorithm's plain version (the same packed
+    FFT and band-mel in plain PyTorch), and nearer a float64 log-mel than
+    the function's two-level DFT plain version, by RMS over all entries.
+    (The two fp32 routes can differ by more than 1e-3 at a mel bin in a
+    deep spectral null of this song, where the float64 function finds the
+    DFT plain version the farther of the two.)"""
     from yourmt3_tpu_torch.ops import fused_logmel as fl
     torch.backends.cuda.matmul.allow_tf32 = False
     fe = _frontend(dev, **cfg)
     audio = _song(B, fe.cfg.input_frames, B).to(dev)
+    bases = (fe.basis_cos, fe.basis_sin, fe.mel_fb, fe.cfg)
     before = fl.fused_logmel.launches
     got = fe(audio)
     assert fl.fused_logmel.launches == before + 1
-    want = fl.fused_logmel_plain(audio, fe.basis_cos, fe.basis_sin, fe.mel_fb, fe.cfg)
+    want = fl.fused_logmel_fft_plain(audio, *bases)
     torch.cuda.synchronize()
     assert got.shape == (B, fe.cfg.num_frames, fe.cfg.n_mels)
     assert bool(torch.isfinite(got).all())
     err = (got - want).abs().max().item()
     assert err < 1e-3, err
+    ref = fl.fused_logmel_float64(audio, fe.basis_cos, fe.mel_fb, fe.cfg)
+    dft = fl.fused_logmel_plain(audio, *bases)
+
+    def rms(x):
+        return (x.double() - ref).pow(2).mean().sqrt().item()
+
+    assert rms(got) <= rms(dft), (rms(got), rms(dft))
+
+
+def test_fused_logmel_op_replays_in_a_cuda_graph(dev):
+    from yourmt3_tpu_torch.ops import fused_logmel as fl
+    fe = _frontend(dev)
+    audio = _song(16, fe.cfg.input_frames, 9).to(dev)
+    packed = fl.pack_bases(fe.basis_cos, fe.basis_sin, fe.mel_fb)
+    _replays_in_a_graph(lambda: fl.fused_logmel(
+        audio, fe.basis_cos, fe.basis_sin, fe.mel_fb, fe.cfg, packed=packed))
 
 
 def test_fused_logmel_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from yourmt3_tpu_torch.ops import cuda_build
     from yourmt3_tpu_torch.ops import fused_logmel as fl
     fe = _frontend(dev)
     audio = _song(2, fe.cfg.input_frames, 0).to(dev)
     args = (fe.basis_cos, fe.basis_sin, fe.mel_fb, fe.cfg)
+    window, twiddles, bands, weights = fl.pack_bases(*args[:3])
     before = fl.fused_logmel.launches
     with pytest.raises(TypeError):
         fl.fused_logmel(audio.double(), *args)
     with pytest.raises(ValueError, match="audio must be"):
         fl.fused_logmel(audio[:, :1000].contiguous(), *args)
-    with pytest.raises(ValueError, match="n_mels"):
-        fl.fused_logmel(audio, fe.basis_cos, fe.basis_sin, fe.mel_fb[:, :100], fe.cfg)
-    cs, mel = fl.pack_bases(fe.basis_cos, fe.basis_sin, fe.mel_fb)
-    with pytest.raises(ValueError, match="q on|is on"):
-        fl.fused_logmel(audio, *args, packed=(cs.cpu(), mel))
+    with pytest.raises(ValueError, match="expected"):
+        fl.fused_logmel(audio, fe.basis_cos, fe.basis_sin, fe.mel_fb[:-1], fe.cfg)
+    with pytest.raises(ValueError, match="is on"):
+        fl.fused_logmel(audio, *args, packed=(window.cpu(), twiddles, bands, weights))
+    with pytest.raises(ValueError, match="power of two"):
+        fl.fused_logmel(audio, *args, packed=(window[:1000], twiddles, bands, weights))
+    with pytest.raises(ValueError, match="twiddles has shape"):
+        fl.fused_logmel(audio, *args, packed=(window, twiddles[1:], bands, weights))
+    with pytest.raises(TypeError):
+        fl.fused_logmel(audio, *args, packed=(window, twiddles, bands.long(), weights))
+    with pytest.raises(ValueError, match="frames_per_cta"):
+        cfg = fe.cfg
+        cuda_build.op("fused_logmel")(audio, window, twiddles, bands, weights,
+                                      cfg.input_frames, cfg.num_frames, cfg.hop_length,
+                                      float(cfg.log_offset), False, 3)
     assert fl.fused_logmel.launches == before
 
 

@@ -92,20 +92,26 @@ def test_spec_codec_never_takes_the_kernel():
 
 
 def test_packed_bases_are_the_kernel_layout():
+    """pack_bases at the default config: the window (the bases'
+    zero-frequency column), the twiddles of the three radix-8 passes after
+    the first radix-4 one, and one band of weights per mel column."""
     cfg = AudioConfig()
     fe = SpectrogramFrontend(cfg)
-    cs, mel = fl.pack_bases(fe.basis_cos, fe.basis_sin, fe.mel_fb)
-    n_bins = cfg.n_fft // 2 + 1
-    assert cs.shape == (cfg.n_fft, 2, 1152) and mel.shape == (1152, cfg.n_mels)
-    flat_cos, flat_sin = cs[:, 0], cs[:, 1]
-    assert torch.equal(flat_cos[:, :n_bins], fe.basis_cos)
-    assert torch.equal(flat_sin[:, :n_bins], fe.basis_sin)
-    assert not flat_cos[:, n_bins:].any() and not mel[n_bins:].any()
-    assert torch.equal(mel[:n_bins], fe.mel_fb)
+    window, twiddles, bands, weights = fl.pack_bases(fe.basis_cos, fe.basis_sin,
+                                                     fe.mel_fb)
+    assert fl.fft_passes(cfg.n_fft) == [(4, 1), (8, 4), (8, 32), (8, 256)]
+    assert window.shape == (cfg.n_fft,) and torch.equal(window, fe.basis_cos[:, 0])
+    assert twiddles.shape == (cfg.n_fft - 4, 2) and twiddles.dtype == torch.float32
+    assert bands.shape == (cfg.n_mels, 3) and bands.dtype == torch.int32
+    lo, hi, off = bands.long().unbind(1)
+    assert bool((lo <= hi).all()) and int(hi.max()) <= cfg.n_fft // 2 + 1
+    assert int(off[-1] + hi[-1] - lo[-1]) == weights.numel()
+    assert int((hi - lo).max()) <= 16  # each bin feeds at most two mels
 
 
-@pytest.mark.parametrize("batch,fpt", [(1, 1), (8, 1), (16, 2), (48, 4)])
-def test_frame_tiles_cover_the_card(batch, fpt):
-    """The kernel's frames per thread at T = 256 on 132 SMs: the largest
-    tile whose grid still covers every SM."""
-    assert fl.frames_per_thread(batch, 256, 132) == fpt
+@pytest.mark.parametrize("batch,tile", [(1, 2), (8, 8), (16, 16), (48, 16)])
+def test_frame_tiles_cover_the_card(batch, tile):
+    """The kernel's frames per CTA at T = 256 on 132 SMs: the largest tile
+    whose grid still gives every SM a CTA."""
+    assert fl.frames_per_cta(batch, 256, 132) == tile
+    assert batch * -(-256 // tile) >= 132 or tile == 2

@@ -1,277 +1,309 @@
-// Fused log-mel spectrogram, Hopper (sm_90a).
+// Fused log-mel spectrogram as a shared-memory FFT, Hopper (sm_90a).
 //
 // Replaces the TPU kernel yourmt3_tpu/ops/pallas/frontend_kernel.py
-// `fused_logmel` (body `_kernel`): framing -> DFT as two GEMMs against the
-// window-folded cos/sin bases -> magnitude -> mel GEMM -> log, with the
-// (B, T, n_fft) frames and the (B, T, n_bins) spectra never written to
-// device memory.
+// `fused_logmel` (body `_kernel`), which computes, with the window folded
+// into the DFT bases,
 //
-//   frame t      = padded[t*hop : t*hop + n_fft]   (reflect-padded row)
-//   re, im       = frame @ cos, frame @ sin        (fp32 accumulation)
-//   mag          = sqrt(re^2 + im^2 + 1e-12)        (squared if power == 2)
-//   acc          = mag @ mel                        (fp32, on chip)
-//   out          = log(max(acc, log_offset))
+//   frame t  = padded[t*hop : t*hop + n_fft]   (reflect-padded row)
+//   X_t      = DFT(window * frame t), bins 0 .. n_fft/2
+//   mag      = sqrt(|X_t|^2 + 1e-12)           (squared if power == 2)
+//   out      = log(max(mag @ mel, log_offset))
 //
-// Layouts (the bases packed once by ops/fused_logmel.py:pack_bases, the
-// audio padded by the operator, csrc/torch_ops.cpp):
-//   padded (B, Lp)            fp32, audio reflect-padded by n_fft/2
-//   cs     (n_fft, 2, Fp)     fp32: per sample, the Fp cos values, then
-//                             the Fp sin values; bins padded with zero
-//                             columns to Fp, a multiple of FT = 128
-//   mel    (Fp, M)            fp32, zero rows past n_bins
-//   out    (B, T, M)          fp32
+// as two GEMMs against the bases, because the TPU's matrix unit makes
+// that the fast way there. On the H100 the same function is an FFT: about
+// 5*N*log2(N)/2 fp32 operations per frame instead of 4*N*(N/2+1), 150x
+// less arithmetic at N = 2048, and the triangular filterbank is summed
+// over its nonzero bands only (each bin feeds at most 2 of the mels).
 //
-// Bound on an H100 SXM: the work is operations. One 32767-sample segment
-// at the default config (T = 256, n_fft = 2048, 1025 bins, 512 mels) is
-// 2*2*256*2048*1025 + 2*256*1025*512 = 2.42 GFLOP of fp32 multiply-adds
-// (38.7 GFLOP at the training batch of 16: 0.58 ms at the 67 TFLOP/s of
-// fp32 outside the tensor cores), against about 24 MB of bytes (19 MB of
-// them the bases and the filterbank, read once), 7 us at 3.35 TB/s.
+// Layouts (the constants packed once by ops/fused_logmel.py:pack_bases,
+// the audio padded by the operator, csrc/torch_ops.cpp):
+//   padded   (B, Lp)       fp32, audio reflect-padded by n_fft/2
+//   window   (N,)          fp32, the bases' zero-frequency column
+//   twiddles (N - R0, 2)   fp32 (re, im), computed in float64 on the host:
+//                          for the radix-8 pass of Ns, entry (Ns - R0) +
+//                          (r-1)*Ns + q is exp(-2 pi i r q / (8 Ns))
+//   bands    (M, 3)        int32 per mel column: first nonzero bin lo, one
+//                          past the last hi, offset of its weights
+//   weights  (nnz,)        fp32, column m's rows lo .. hi-1
+//   out      (B, T, M)     fp32
 //
-// Design (plain fp32 FMA first; tensor cores via TF32 or a split-bf16
-// product, and a persistent schedule, are later work):
-//   * one CTA of 256 threads per (segment, tile of TT = 8*FPT frames);
-//     the wrapper picks the largest FPT in {4, 2, 1} whose grid covers the
-//     card's SMs (B = 16 -> FPT = 2, 256 CTAs; B = 8 -> FPT = 1, 256 CTAs;
-//     on an H100 SXM each is the fastest of the three at its batch);
-//   * the CTA copies its frames' span of the padded row, (TT-1)*hop +
-//     n_fft samples, into shared memory once: frames are read from it in
-//     place, never materialised; samples past the row read as 0, so a
-//     last tile that runs past T is harmless and is not stored;
-//   * the bases stream through shared memory in chunks of KB = 32 samples
-//     x 128 bins (cos and sin, 32 KB), double-buffered with cp.async, so
-//     each CTA reads each basis row from L2 once for its 8 warps (with
-//     per-warp __ldg of the bases the first version of this kernel took
-//     6.2 ms at B = 16 on an H100 SXM, see PERF.md); a
-//     staged row holds the tile's 128 cos values, then its 128 sin values,
-//     so each warp's 16-byte loads cover 512 contiguous bytes (no bank
-//     conflicts);
-//   * warp w owns frames w*FPT .. w*FPT+FPT-1, lane l owns bins 4l..4l+3 of
-//     each 128-bin tile: per sample n, two 16-byte shared-memory basis
-//     loads feed 8*FPT FMAs, the frame value is a shared-memory broadcast;
-//   * the DFT sums are taken in two levels, partial sums over a chunk
-//     added to the totals: a plain running fp32 sum over 2048 samples next
-//     to a loud tone drifts by up to ~1e-3 in log-mel from the exact
-//     value; two levels cut that ~4x (the plain version sums the same way);
-//   * the tile's magnitudes go to shared memory, then each lane adds
-//     mag @ mel for mel columns l, l+32, ... into FPT*(M/32) registers,
-//     so the mel accumulator stays on chip across all frequency tiles;
-//   * the epilogue takes the log and writes each output once.
-// Built without --use_fast_math: sqrtf and logf are the accurate ones.
+// Bound on an H100 SXM: at the default config (T = 256, N = 2048, 1025
+// bins, 512 mels) and the training batch of 16, the FFTs are 128 complex
+// transforms per segment of 5*N*log2(N) = 113 kFLOP, 0.23 GFLOP in all
+// (3.4 us at the 67 TFLOP/s of fp32 outside the tensor cores; the split,
+// the magnitudes and the ~2000 band weights per frame add a few per cent),
+// against 2.1 MB of audio in and 8.4 MB of log-mel out (3.1 us at 3.35
+// TB/s). The kernel's own limit is shared memory: each radix-8 pass reads
+// and writes every point once.
+//
+// Design:
+//   * one CTA of N/8 threads per (segment, tile of TT frames, TT even);
+//     the wrapper picks TT (ops/fused_logmel.py:frames_per_cta);
+//   * the CTA copies its frames' span of the padded row, (TT-1)*hop + N
+//     samples, into shared memory once, the twiddle table and the mel
+//     weights beside it; samples past the row read as 0, so a frame past T
+//     is harmless and is not stored;
+//   * frames 2p and 2p+1 of the tile, windowed as they are read from the
+//     span, are the real and imaginary parts of one complex N-point FFT;
+//   * Stockham (autosort) schedule: a first pass of radix R0 in {2, 4, 8}
+//     (log2 N mod 3), then radix-8 passes; each thread holds 8 points in
+//     registers per pass (the DFT of 8 by radix-2 stages whose only
+//     constant is sqrt(1/2)), multiplies by the table's twiddles, and the
+//     passes exchange through two shared buffers of N points in turn.
+//     Point i is stored at swz(i), i with its low four bits XORed by bits
+//     4-6, so the strided writes of the first two passes at N = 2048 and
+//     the consecutive reads of every pass touch each bank once a wavefront;
+//   * split: X_2p[k] = (Z[k] + conj Z[N-k]) / 2, X_2p+1[k] = (Z[k] -
+//     conj Z[N-k]) / 2i; both frames' magnitudes go to the buffer the last
+//     pass read from;
+//   * each thread then takes (frame, mel) outputs o, o + N/8, ... of the
+//     pair, sums its band of magnitudes times the band's weights, takes
+//     the log and writes it: a pair's 2*M outputs are one contiguous run.
+//     These are the same mel columns for every pair, so a thread loads
+//     its columns' bands into registers once: read from global memory per
+//     output, the bands made the mel product the kernel's slowest stage
+//     on an H100 SXM (PERF.md).
+// Built without --use_fast_math: sqrtf and logf are the accurate ones,
+// and no twiddle comes from __sinf/__cosf.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "kernels.h"
 
 namespace {
 
-constexpr int NT = 256;     // 8 warps: one frame group each
-constexpr int FT = LOGMEL_FREQ_TILE;  // bins per frequency tile, 4 per lane
-constexpr int MAX_MJ = LOGMEL_MAX_MELS / 32;  // mel columns per lane
-constexpr int KB = LOGMEL_DFT_BLOCK;  // samples per staged chunk and partial sum
-constexpr int ROW4 = 2 * FT / 4;  // float4 per staged basis row: cos, sin
+constexpr float SQRT_HALF = 0.70710678118654752f;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ int swz(int i) {
+  return i ^ (((i >> 3) & 12) | ((i >> 4) & 3));
 }
 
-// rows n0 .. n0+KB-1 of the bases for bins f0 .. f0+FT-1 → buf (KB x
-// ROW4): per row, FT/4 float4 of cos, then FT/4 of sin
-__device__ __forceinline__ void stage_bases(float4* buf, const float4* cs,
-                                            int n0, int f0, int Fp) {
-  const size_t row = static_cast<size_t>(Fp) / 2;  // float4 per sample
-  for (int i = threadIdx.x; i < KB * ROW4; i += NT) {
-    const int r = i / ROW4, j = i % ROW4;
-    const int half = j / (FT / 4);  // 0: cos, 1: sin
-    cp_async16(buf + i, cs + (n0 + r) * row + half * (Fp / 4) + f0 / 4
-                            + j % (FT / 4));
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// natural-order DFT of R in {2, 4, 8} points, radix-2 decimation in
+// frequency (the plain version's _dft)
+template <int R>
+__device__ __forceinline__ void dft(float2* v) {
+  if constexpr (R == 8) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = v[i], b = v[i + 4];
+      v[i] = make_float2(a.x + b.x, a.y + b.y);
+      const float2 d = make_float2(a.x - b.x, a.y - b.y);
+      if (i == 0) v[4] = d;
+      else if (i == 1) v[5] = make_float2(SQRT_HALF * (d.x + d.y), SQRT_HALF * (d.y - d.x));
+      else if (i == 2) v[6] = make_float2(d.y, -d.x);
+      else v[7] = make_float2(SQRT_HALF * (d.y - d.x), -SQRT_HALF * (d.x + d.y));
+    }
+  }
+  if constexpr (R >= 4) {
+#pragma unroll
+    for (int s = 0; s < R; s += 4) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 a = v[s + i], b = v[s + i + 2];
+        v[s + i] = make_float2(a.x + b.x, a.y + b.y);
+        v[s + i + 2] = i == 0 ? make_float2(a.x - b.x, a.y - b.y)
+                              : make_float2(a.y - b.y, b.x - a.x);
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < R; s += 2) {
+    const float2 a = v[s], b = v[s + 1];
+    v[s] = make_float2(a.x + b.x, a.y + b.y);
+    v[s + 1] = make_float2(a.x - b.x, a.y - b.y);
+  }
+  // bit-reversed → natural order
+  if constexpr (R == 8) {
+    float2 t = v[1]; v[1] = v[4]; v[4] = t;
+    t = v[3]; v[3] = v[6]; v[6] = t;
+  } else if constexpr (R == 4) {
+    const float2 t = v[1]; v[1] = v[2]; v[2] = t;
   }
 }
 
-template <int FPT>
-__global__ void __launch_bounds__(NT)
-fused_logmel_kernel(const float* __restrict__ padded,
-                    const float4* __restrict__ cs,
-                    const float* __restrict__ mel, float* __restrict__ out,
-                    int Lp, int T, int n_fft, int hop, int Fp, int M,
-                    float log_offset, int power2) {
-  constexpr int TT = 8 * FPT;
-  extern __shared__ float smem[];
-  const int span = (TT - 1) * hop + n_fft;
-  float* frames = smem;
-  float* mag = smem + ((span + 3) & ~3);  // 16-byte aligned, TT x FT
-  float4* sbuf = reinterpret_cast<float4*>(mag + TT * FT);  // 2 x KB x ROW4
+template <int LOG2N>
+struct Fft {
+  static constexpr int N = 1 << LOG2N;
+  static constexpr int NT = N / 8;  // threads per CTA, 8 points each
+  static constexpr int R0 = 1 << (LOG2N % 3 == 0 ? 3 : LOG2N % 3);
+};
 
+
+
+template <int LOG2N>
+__global__ void __launch_bounds__(Fft<LOG2N>::NT)
+fused_logmel_kernel(const float* __restrict__ padded,
+                    const float* __restrict__ window,
+                    const float2* __restrict__ twiddles,
+                    const int* __restrict__ bands,
+                    const float* __restrict__ weights, float* __restrict__ out,
+                    int Lp, int T, int hop, int M, int nnz, int TT, float log_offset,
+                    int power2) {
+  using F = Fft<LOG2N>;
+  constexpr int N = F::N, NT = F::NT, R0 = F::R0, NB = N / 2 + 1;
+  constexpr int MAX_OUT = (2 * LOGMEL_MAX_MELS + NT - 1) / NT;  // outputs per thread
+  extern __shared__ float4 smem4[];
+  float2* buf0 = reinterpret_cast<float2*>(smem4);
+  float2* buf1 = buf0 + N;
+  float2* tw = buf1 + N;              // N - R0 twiddles
+  float* sweight = reinterpret_cast<float*>(tw + (N - R0 + 1) / 2 * 2);  // nnz
+  float* span = sweight + ((nnz + 3) & ~3);
+
+  const int tid = threadIdx.x;
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * TT;
-  const int lane = threadIdx.x & 31;
-  const int grp = threadIdx.x >> 5;
-  const int mj = M / 32;
-
+  const int span_len = (TT - 1) * hop + N;
   const float* row = padded + static_cast<size_t>(b) * Lp;
   const int base = t0 * hop;
-  for (int i = threadIdx.x; i < span; i += NT) {
+  for (int i = tid; i < span_len; i += NT) {
     const int idx = base + i;
-    frames[i] = idx < Lp ? row[idx] : 0.f;
+    span[i] = idx < Lp ? row[idx] : 0.f;
   }
-
-  float acc[FPT][MAX_MJ];
+  for (int i = tid; i < N - R0; i += NT) tw[i] = twiddles[i];
+  for (int i = tid; i < nnz; i += NT) sweight[i] = weights[i];
+  // A thread takes outputs tid + j NT of every pair's 2M: the same mel
+  // columns for each pair, so their bands stay in registers.
+  int band_lo[MAX_OUT], band_width[MAX_OUT], band_off[MAX_OUT];
 #pragma unroll
-  for (int i = 0; i < FPT; ++i)
+  for (int j = 0; j < MAX_OUT; ++j) {
+    const int i = tid + j * NT;
+    const int m = i % M;
+    band_lo[j] = i < 2 * M ? __ldg(bands + 3 * m) + (i >= M ? NB : 0) : 0;
+    band_width[j] = i < 2 * M ? __ldg(bands + 3 * m + 1) - __ldg(bands + 3 * m) : 0;
+    band_off[j] = i < 2 * M ? __ldg(bands + 3 * m + 2) : 0;
+  }
+  float w[8];  // this thread's window values in the first pass
 #pragma unroll
-    for (int j = 0; j < MAX_MJ; ++j) acc[i][j] = 0.f;
+  for (int s = 0; s < 8; ++s) {
+    const int bf = tid + (s / R0) * NT;  // butterfly
+    w[s] = __ldg(window + bf + (s % R0) * (N / R0));
+  }
   __syncthreads();
 
-  const float* fr = frames + grp * FPT * hop;
-  for (int f0 = 0; f0 < Fp; f0 += FT) {
-    float re[FPT][4], im[FPT][4];
+  for (int p = 0; 2 * p < TT; ++p) {
+    if (t0 + 2 * p >= T) break;  // the same for every thread of the CTA
+    const float* f0 = span + 2 * p * hop;
+    const float* f1 = f0 + hop;
+    // pass 1: radix R0, Ns = 1 (no twiddles), 8/R0 butterflies per thread
 #pragma unroll
-    for (int i = 0; i < FPT; ++i)
+    for (int g = 0; g < 8 / R0; ++g) {
+      const int bf = tid + g * NT;
+      float2 v[R0];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) re[i][q] = im[i][q] = 0.f;
-
-    const int chunks = n_fft / KB;
-    stage_bases(sbuf, cs, 0, f0, Fp);
-    cp_async_commit();
-    for (int ch = 0; ch < chunks; ++ch) {
-      if (ch + 1 < chunks) {  // prefetch the next chunk into the other buffer
-        stage_bases(sbuf + ((ch + 1) & 1) * KB * ROW4, cs, (ch + 1) * KB, f0,
-                    Fp);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
+      for (int r = 0; r < R0; ++r) {
+        const int n = bf + r * (N / R0);
+        const float wn = w[g * R0 + r];
+        v[r] = make_float2(wn * f0[n], wn * f1[n]);
       }
-      __syncthreads();
-      const float4* bases = sbuf + (ch & 1) * KB * ROW4 + lane;
-      const float* frn = fr + ch * KB;
-      // partial sums over the chunk, added to the totals after it
-      float pr[FPT][4], pi[FPT][4];
+      dft<R0>(v);
 #pragma unroll
-      for (int i = 0; i < FPT; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) pr[i][q] = pi[i][q] = 0.f;
-#pragma unroll 8
-      for (int r = 0; r < KB; ++r) {
-        const float4 c = bases[r * ROW4];
-        const float4 s = bases[r * ROW4 + FT / 4];
-#pragma unroll
-        for (int i = 0; i < FPT; ++i) {
-          const float x = frn[i * hop + r];
-          pr[i][0] = fmaf(x, c.x, pr[i][0]);
-          pr[i][1] = fmaf(x, c.y, pr[i][1]);
-          pr[i][2] = fmaf(x, c.z, pr[i][2]);
-          pr[i][3] = fmaf(x, c.w, pr[i][3]);
-          pi[i][0] = fmaf(x, s.x, pi[i][0]);
-          pi[i][1] = fmaf(x, s.y, pi[i][1]);
-          pi[i][2] = fmaf(x, s.z, pi[i][2]);
-          pi[i][3] = fmaf(x, s.w, pi[i][3]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < FPT; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          re[i][q] += pr[i][q];
-          im[i][q] += pi[i][q];
-        }
-      __syncthreads();  // this buffer is restaged for chunk ch + 2
-    }
-
-#pragma unroll
-    for (int i = 0; i < FPT; ++i) {
-      float m[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        m[q] = sqrtf(re[i][q] * re[i][q] + im[i][q] * im[i][q] + 1e-12f);
-        if (power2) m[q] *= m[q];
-      }
-      *reinterpret_cast<float4*>(mag + (grp * FPT + i) * FT + lane * 4) =
-          make_float4(m[0], m[1], m[2], m[3]);
+      for (int r = 0; r < R0; ++r) buf0[swz(bf * R0 + r)] = v[r];
     }
     __syncthreads();
-
-    const float* mg = mag + grp * FPT * FT;
-    const float* melp = mel + static_cast<size_t>(f0) * M + lane;
-#pragma unroll 2
-    for (int f = 0; f < FT; ++f) {
-      float mv[FPT];
+    // radix-8 passes, Ns = R0, 8 R0, ..., N/8
+    float2* src = buf0;
+    float2* dst = buf1;
 #pragma unroll
-      for (int i = 0; i < FPT; ++i) mv[i] = mg[i * FT + f];
-      const float* w = melp + static_cast<size_t>(f) * M;
+    for (int ns = R0; ns < N; ns *= 8) {
+      float2 v[8];
 #pragma unroll
-      for (int j = 0; j < MAX_MJ; ++j) {
-        if (j < mj) {
-          const float wj = __ldg(w + 32 * j);
+      for (int r = 0; r < 8; ++r) v[r] = src[swz(tid + r * NT)];
+      const int q = tid & (ns - 1);
+      const float2* t = tw + (ns - R0) + q;
 #pragma unroll
-          for (int i = 0; i < FPT; ++i) acc[i][j] = fmaf(mv[i], wj, acc[i][j]);
-        }
+      for (int r = 1; r < 8; ++r) v[r] = cmul(v[r], t[(r - 1) * ns]);
+      dft<8>(v);
+      const int d = (tid - q) * 8 + q;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) dst[swz(d + r * ns)] = v[r];
+      __syncthreads();
+      float2* x = src; src = dst; dst = x;
+    }
+    // split the pair's spectra; magnitudes into the free buffer
+    float* mag = reinterpret_cast<float*>(dst);  // frame 2p: [0, NB), 2p+1: [NB, 2NB)
+    for (int k = tid; k < NB; k += NT) {
+      const float2 a = src[swz(k)];
+      const float2 c = src[swz((N - k) & (N - 1))];
+      const float er = (a.x + c.x) * 0.5f, ei = (a.y - c.y) * 0.5f;
+      const float orr = (a.y + c.y) * 0.5f, oi = (a.x - c.x) * 0.5f;
+      float m0 = sqrtf(er * er + ei * ei + 1e-12f);
+      float m1 = sqrtf(orr * orr + oi * oi + 1e-12f);
+      if (power2) { m0 *= m0; m1 *= m1; }
+      mag[k] = m0;
+      mag[NB + k] = m1;
+    }
+    __syncthreads();
+    // band-sparse mel product and log; the pair's rows are contiguous
+    const int t = t0 + 2 * p;
+    const int live = min(2, T - t) * M;  // 2M, or M when frame 2p+1 is past T
+    float* o = out + (static_cast<size_t>(b) * T + t) * M;
+#pragma unroll
+    for (int j = 0; j < MAX_OUT; ++j) {
+      const int i = tid + j * NT;
+      if (i < live) {
+        const float* mg = mag + band_lo[j];  // frame 2p+1's bins follow 2p's
+        const float* wt = sweight + band_off[j];
+        float acc = 0.f;
+#pragma unroll 4
+        for (int k = 0; k < band_width[j]; ++k) acc = fmaf(mg[k], wt[k], acc);
+        o[i] = logf(fmaxf(acc, log_offset));
       }
     }
-    __syncthreads();  // mag is rewritten by the next tile
-  }
-
-#pragma unroll
-  for (int i = 0; i < FPT; ++i) {
-    const int t = t0 + grp * FPT + i;
-    if (t < T) {
-      float* o = out + (static_cast<size_t>(b) * T + t) * M + lane;
-#pragma unroll
-      for (int j = 0; j < MAX_MJ; ++j)
-        if (j < mj) o[32 * j] = logf(fmaxf(acc[i][j], log_offset));
-    }
+    __syncthreads();  // the buffers are rewritten by the next pair
   }
 }
 
-template <int FPT>
-cudaError_t launch(const float* padded, const float4* cs, const float* mel,
-                   float* out, int B, int Lp, int T, int n_fft, int hop,
-                   int Fp, int M, float log_offset, int power2,
-                   cudaStream_t stream) {
-  constexpr int TT = 8 * FPT;
-  const int span = (TT - 1) * hop + n_fft;
-  const size_t smem = (static_cast<size_t>((span + 3) & ~3) + TT * FT) * sizeof(float)
-                      + 2 * KB * ROW4 * sizeof(float4);
+template <int LOG2N>
+cudaError_t launch(const float* padded, const float* window, const float2* tw,
+                   const int* bands, const float* weights, float* out, int B,
+                   int Lp, int T, int hop, int M, int nnz, int TT, float log_offset,
+                   int power2, cudaStream_t stream) {
+  using F = Fft<LOG2N>;
+  const size_t smem = (2 * F::N + (F::N - F::R0 + 1) / 2 * 2) * sizeof(float2) +
+                      static_cast<size_t>((nnz + 3) & ~3) * sizeof(float) +
+                      static_cast<size_t>(((TT - 1) * hop + F::N + 3) & ~3) * sizeof(float);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_logmel_kernel<FPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_logmel_kernel<LOG2N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  dim3 grid((T + TT - 1) / TT, B);
-  fused_logmel_kernel<FPT><<<grid, NT, smem, stream>>>(
-      padded, cs, mel, out, Lp, T, n_fft, hop, Fp, M, log_offset, power2);
+  const dim3 grid((T + TT - 1) / TT, B);
+  fused_logmel_kernel<LOG2N><<<grid, F::NT, smem, stream>>>(
+      padded, window, tw, bands, weights, out, Lp, T, hop, M, nnz, TT, log_offset, power2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// n_fft a multiple of KB, Fp of FT, M of 32 and at most 32 * MAX_MJ.
-extern "C" int fused_logmel_launch(const void* padded, const void* cs,
-                                   const void* mel, void* out, int B, int Lp,
-                                   int T, int n_fft, int hop, int Fp, int M,
-                                   float log_offset, int power2,
-                                   int frames_per_thread, void* stream) {
-  if (B < 1 || T < 1 || n_fft < KB || n_fft % KB || hop < 1 || Fp < FT || Fp % FT ||
-      M < 32 || M % 32 || M > 32 * MAX_MJ)
+extern "C" int fused_logmel_launch(const void* padded, const void* window,
+                                   const void* twiddles, const void* bands,
+                                   const void* weights, void* out, int B, int Lp,
+                                   int T, int n_fft, int hop, int M, int nnz,
+                                   float log_offset, int power2, int frames_per_cta,
+                                   void* stream) {
+  if (B < 1 || T < 1 || hop < 1 || M < 1 || M > LOGMEL_MAX_MELS || nnz < 0 ||
+      frames_per_cta < 2 || frames_per_cta % 2 || frames_per_cta > LOGMEL_MAX_TILE)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* p = static_cast<const float*>(padded);
-  const float4* c = static_cast<const float4*>(cs);
-  const float* m = static_cast<const float*>(mel);
+  const float* w = static_cast<const float*>(window);
+  const float2* tw = static_cast<const float2*>(twiddles);
+  const int* bd = static_cast<const int*>(bands);
+  const float* wt = static_cast<const float*>(weights);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (frames_per_thread) {
-    case 1: return launch<1>(p, c, m, o, B, Lp, T, n_fft, hop, Fp, M, log_offset, power2, st);
-    case 2: return launch<2>(p, c, m, o, B, Lp, T, n_fft, hop, Fp, M, log_offset, power2, st);
-    case 4: return launch<4>(p, c, m, o, B, Lp, T, n_fft, hop, Fp, M, log_offset, power2, st);
+  const int tt = frames_per_cta;
+  switch (n_fft) {
+    case 256: return launch<8>(p, w, tw, bd, wt, o, B, Lp, T, hop, M, nnz, tt, log_offset, power2, st);
+    case 512: return launch<9>(p, w, tw, bd, wt, o, B, Lp, T, hop, M, nnz, tt, log_offset, power2, st);
+    case 1024: return launch<10>(p, w, tw, bd, wt, o, B, Lp, T, hop, M, nnz, tt, log_offset, power2, st);
+    case 2048: return launch<11>(p, w, tw, bd, wt, o, B, Lp, T, hop, M, nnz, tt, log_offset, power2, st);
+    case 4096: return launch<12>(p, w, tw, bd, wt, o, B, Lp, T, hop, M, nnz, tt, log_offset, power2, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

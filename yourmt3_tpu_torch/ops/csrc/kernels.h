@@ -12,10 +12,11 @@
 // The operators check these with Python's error types before launching.
 constexpr int PAGED_MAX_BLOCK = 256;    // rows per page
 constexpr int PAGED_MAX_BUCKETS = 256;  // T5 bias table rows, held in shared memory
-constexpr int INT4_MAX_T = 4096;        // encoder frames: the logits row is in shared memory
-constexpr int LOGMEL_DFT_BLOCK = 32;    // samples per partial DFT sum; n_fft is a multiple
-constexpr int LOGMEL_FREQ_TILE = 128;   // bins per frequency tile; Fp is a multiple
-constexpr int LOGMEL_MAX_MELS = 512;    // mel columns, a multiple of 32
+constexpr int INT4_MAX_T = 4096;        // encoder frames, walked in chunks of 256 columns
+constexpr int LOGMEL_MIN_NFFT = 256;    // FFT sizes: powers of two in [MIN, MAX]
+constexpr int LOGMEL_MAX_NFFT = 4096;
+constexpr int LOGMEL_MAX_TILE = 64;     // frames per CTA: even, in [2, MAX]
+constexpr int LOGMEL_MAX_MELS = 512;    // mel columns: their bands stay in registers
 
 extern "C" {
 
@@ -40,12 +41,14 @@ int int4_cross_attention_launch(const void* q, const void* k4, const void* ks,
                                 int S, int H, int dk, int T, int q_dtype,
                                 void* stream);
 
-// frames_per_thread in {1, 2, 4}; the bases in the layout of
-// ops/fused_logmel.py:pack_bases.
-int fused_logmel_launch(const void* padded, const void* cs, const void* mel,
-                        void* out, int B, int Lp, int T, int n_fft, int hop,
-                        int Fp, int M, float log_offset, int power2,
-                        int frames_per_thread, void* stream);
+// window, twiddles, bands and weights in the layout of
+// ops/fused_logmel.py:pack_bases; frames_per_cta even, in [2,
+// LOGMEL_MAX_TILE].
+int fused_logmel_launch(const void* padded, const void* window,
+                        const void* twiddles, const void* bands,
+                        const void* weights, void* out, int B, int Lp, int T,
+                        int n_fft, int hop, int M, int nnz, float log_offset,
+                        int power2, int frames_per_cta, void* stream);
 
 // n in [1, 1024].
 int launch_probe_launch(const void* x, void* out, int n, void* stream);

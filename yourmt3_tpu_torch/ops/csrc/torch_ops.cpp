@@ -197,6 +197,9 @@ Tensor int4_cross_attention(const Tensor& q, const Tensor& k4, const Tensor& ks,
   }
   check(ks, "ks", q3, "q", {ScalarType::Float}, scales);
   check(vs, "vs", q3, "q", {ScalarType::Float}, scales);
+  for (const Tensor* t : {&ks, &vs})  // copied 16 bytes at a time with K and V
+    TORCH_CHECK_VALUE(T % 16 != 0 || reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                      t == &ks ? "ks" : "vs", " must be 16-byte aligned");
 
   const c10::cuda::CUDAGuard guard(q.device());
   Tensor out = at::empty({S, H, dk}, q.options());
@@ -208,40 +211,53 @@ Tensor int4_cross_attention(const Tensor& q, const Tensor& k4, const Tensor& ks,
   return q.dim() == 4 ? out.unsqueeze(2) : out;
 }
 
-// cs (n_fft, 2, Fp) and mel (Fp, n_mels): the layout of
-// ops/fused_logmel.py:pack_bases
-Tensor fused_logmel(const Tensor& audio, const Tensor& cs, const Tensor& mel,
-                    int64_t input_frames, int64_t num_frames, int64_t hop_length,
-                    double log_offset, bool power2, int64_t frames_per_thread) {
+// window (n_fft,), twiddles (n_fft - R0, 2), bands (n_mels, 3) int32 and
+// weights (nnz,): the layout of ops/fused_logmel.py:pack_bases
+Tensor fused_logmel(const Tensor& audio, const Tensor& window, const Tensor& twiddles,
+                    const Tensor& bands, const Tensor& weights, int64_t input_frames,
+                    int64_t num_frames, int64_t hop_length, double log_offset, bool power2,
+                    int64_t frames_per_cta) {
   TORCH_CHECK_VALUE(audio.dim() == 2 && audio.size(1) == input_frames, "audio must be (B, ",
                     input_frames, "), got ", audio.sizes());
-  TORCH_CHECK_VALUE(cs.dim() == 3 && cs.size(1) == 2, "packed cos/sin must be (n_fft, 2, Fp), got ",
-                    cs.sizes());
-  TORCH_CHECK_VALUE(mel.dim() == 2, "packed mel must be (Fp, n_mels), got ", mel.sizes());
-  const int64_t n_fft = cs.size(0), fp = cs.size(2), n_mels = mel.size(1);
-  TORCH_CHECK_VALUE(n_fft % LOGMEL_DFT_BLOCK == 0, "n_fft=", n_fft,
-                    ": the kernel takes a multiple of ", LOGMEL_DFT_BLOCK);
-  TORCH_CHECK_VALUE(fp % LOGMEL_FREQ_TILE == 0, "packed cos/sin has ", fp,
-                    " bins: the kernel takes a multiple of ", LOGMEL_FREQ_TILE);
-  TORCH_CHECK_VALUE(n_mels % 32 == 0 && 32 <= n_mels && n_mels <= LOGMEL_MAX_MELS, "n_mels=",
-                    n_mels, ": the kernel takes a multiple of 32 up to ", LOGMEL_MAX_MELS);
-  TORCH_CHECK_VALUE(frames_per_thread == 1 || frames_per_thread == 2 || frames_per_thread == 4,
-                    "frames_per_thread=", frames_per_thread, " not in (1, 2, 4)");
+  TORCH_CHECK_VALUE(window.dim() == 1, "window must be (n_fft,), got ", window.sizes());
+  const int64_t n_fft = window.size(0);
+  TORCH_CHECK_VALUE(LOGMEL_MIN_NFFT <= n_fft && n_fft <= LOGMEL_MAX_NFFT &&
+                        (n_fft & (n_fft - 1)) == 0,
+                    "n_fft=", n_fft, ": the kernel takes a power of two from ",
+                    LOGMEL_MIN_NFFT, " to ", LOGMEL_MAX_NFFT);
+  int log2n = 0;
+  while ((int64_t{1} << log2n) < n_fft) ++log2n;
+  const int64_t first_radix = int64_t{1} << (log2n % 3 == 0 ? 3 : log2n % 3);
+  TORCH_CHECK_VALUE(bands.dim() == 2 && bands.size(1) == 3 && bands.size(0) >= 1,
+                    "mel bands must be (n_mels, 3), got ", bands.sizes());
+  TORCH_CHECK_VALUE(bands.size(0) <= LOGMEL_MAX_MELS, "n_mels=", bands.size(0),
+                    ": the kernel takes up to ", LOGMEL_MAX_MELS);
+  TORCH_CHECK_VALUE(weights.dim() == 1, "mel weights must be (nnz,), got ", weights.sizes());
+  TORCH_CHECK_VALUE(num_frames >= 1 && hop_length >= 1,
+                    "num_frames and hop_length must be >= 1, got ", num_frames, ", ",
+                    hop_length);
+  TORCH_CHECK_VALUE(frames_per_cta >= 2 && frames_per_cta % 2 == 0 &&
+                        frames_per_cta <= LOGMEL_MAX_TILE,
+                    "frames_per_cta=", frames_per_cta, ": the kernel takes an even tile in [2, ",
+                    LOGMEL_MAX_TILE, "]");
   check(audio, "audio", audio, "audio", {ScalarType::Float});
-  check(cs, "packed cos/sin", audio, "audio", {ScalarType::Float});
-  check(mel, "packed mel", audio, "audio", {ScalarType::Float},
-        std::vector<int64_t>{fp, n_mels});
+  check(window, "window", audio, "audio", {ScalarType::Float});
+  check(twiddles, "twiddles", audio, "audio", {ScalarType::Float},
+        std::vector<int64_t>{n_fft - first_radix, 2});
+  check(bands, "mel bands", audio, "audio", {ScalarType::Int});
+  check(weights, "mel weights", audio, "audio", {ScalarType::Float});
 
   const c10::cuda::CUDAGuard guard(audio.device());
   const Tensor padded = at::reflection_pad1d(audio, {n_fft / 2, n_fft / 2}).contiguous();
-  const int64_t B = audio.size(0);
+  const int64_t B = audio.size(0), n_mels = bands.size(0);
   Tensor out = at::empty({B, num_frames, n_mels}, audio.options());
   const int err = fused_logmel_launch(
-      padded.data_ptr(), cs.data_ptr(), mel.data_ptr(), out.data_ptr(),
-      static_cast<int>(B), static_cast<int>(padded.size(1)), static_cast<int>(num_frames),
-      static_cast<int>(n_fft), static_cast<int>(hop_length), static_cast<int>(fp),
-      static_cast<int>(n_mels), static_cast<float>(log_offset), power2 ? 1 : 0,
-      static_cast<int>(frames_per_thread), stream_of(audio));
+      padded.data_ptr(), window.data_ptr(), twiddles.data_ptr(), bands.data_ptr(),
+      weights.data_ptr(), out.data_ptr(), static_cast<int>(B),
+      static_cast<int>(padded.size(1)), static_cast<int>(num_frames),
+      static_cast<int>(n_fft), static_cast<int>(hop_length), static_cast<int>(n_mels),
+      static_cast<int>(weights.numel()), static_cast<float>(log_offset), power2 ? 1 : 0,
+      static_cast<int>(frames_per_cta), stream_of(audio));
   check_launch(err, "fused_logmel");
   return out;
 }
@@ -267,9 +283,9 @@ TORCH_LIBRARY(yourmt3_tpu_torch, m) {
         &paged_decode_splits);
   m.def("int4_cross_attention(Tensor q, Tensor k4, Tensor ks, Tensor v4, Tensor vs) "
         "-> Tensor");
-  m.def("fused_logmel(Tensor audio, Tensor cs, Tensor mel, int input_frames, "
-        "int num_frames, int hop_length, float log_offset, bool power2, "
-        "int frames_per_thread) -> Tensor");
+  m.def("fused_logmel(Tensor audio, Tensor window, Tensor twiddles, Tensor bands, "
+        "Tensor weights, int input_frames, int num_frames, int hop_length, "
+        "float log_offset, bool power2, int frames_per_cta) -> Tensor");
   m.def("launch_probe(Tensor x) -> Tensor");
 }
 
