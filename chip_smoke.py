@@ -45,7 +45,25 @@ Phases:
      loss must fall. Then a profiled window of 3 steps, a checkpoint
      restored with load_checkpoint(kv_quant="int8c4p",
      weight_quant="int8") that transcribes a 2 s song, and two steps of
-     cli.train at t5_small width.
+     cli.train at t5_small width;
+  7. evaluation, slice 4, on phase 6's checkpoint in the same directory:
+     a. a test split of synth_mc (2 tracks of 8 s, another seed) built by
+        the port's build_synth_dataset;
+     b-d. python -m yourmt3_tpu_torch.cli.test on it with int8c4p K/V and
+        int8 weights, batch 8: per-track lines, the wall and audio-s/s; the
+        JSON must hold the evaluator's keys and the int4 kernel's launches
+        must equal 8 x the decode steps run;
+     e. api.transcribe_audio_array on a training song with and without
+        early_exit (repair off), then (the checkpoint ends every stream at
+        once) greedy_decode_early_exit against greedy_decode on phase 3b's
+        full-width flagship (int4 kernel, 104 streams) and on t5_small's
+        fast path (paged kernel, 48 streams, L 512), each stopping at a
+        token its plain decode emits at different steps: at least one
+        compaction each, and the tokens equal or parting only where the
+        plain decode's top two logits lie within MARGIN_ULPS bf16 ulps;
+     f. batch invariance: the paged kernel (48 streams, int8 pages, pos
+        511 and 1023) and the int4 kernel (104 streams) on the kept rows of
+        a compacted batch (8 and 16 streams) against the full batch.
 
 Any failure raises: nothing is caught and nothing falls back. The last
 line is {"ok": true, "device": {...}}; the line before it lists each
@@ -100,6 +118,19 @@ TOL_LOGMEL = 1e-3
 LOGMEL_BATCHES = (1, 8, 16)
 TRAIN_BATCH, TRAIN_STEPS, PROFILED_STEPS = 16, 20, 3
 PROBE_ROUNDS = 7  # chains of the probe and of torch's x + 1, in turns
+# programs of the synthetic multi-instrument set (preset synth_mc)
+SYNTH_MC_PROGRAMS = (0, 24, 32, 40, 56, 73)
+# keys the evaluator writes on a set whose tracks hold pitched notes and
+# drums, scored with an eval program vocabulary (eval/evaluator.py)
+EVAL_KEYS = ("onset_f1", "offset_f1", "multi_f1", "drum_f1", "onset_precision",
+             "onset_recall", "multi_precision", "multi_recall",
+             "decode_errors", "num_tracks", "per_class")
+OFFSET_KEYS = ("n_pairs", "mean_signed_s", "median_signed_s", "std_s",
+               "p_early", "p_late", "p_within_tol")
+# early exit against plain greedy on the card: a stream may part only
+# where the plain decode's top two logits lie within this many bf16 ulps
+# of the top logit (a batch of another size may round another way)
+MARGIN_ULPS = 4
 
 
 def log(msg: str) -> None:
@@ -1018,7 +1049,7 @@ def build_synth_sets(root):
     the smoke set (synth_smoke), built by the port's copy of the builder."""
     from yourmt3_tpu_torch.data.preprocess.synth import build_synth_dataset
     build_synth_dataset(root, n_tracks=4, duration=8.0, splits=("train",),
-                        programs=(0, 24, 32, 40, 56, 73), seed=0,
+                        programs=SYNTH_MC_PROGRAMS, seed=0,
                         dataset_name="synthmc")
     build_synth_dataset(root, n_tracks=2, duration=6.0, splits=("train",), seed=1)
 
@@ -1194,6 +1225,313 @@ def cli_train_steps(tmp):
     assert restore_opt_state(os.path.join(run, "last"))["step"] == 2
 
 
+# ---------------------------------------------------------------------------
+# phase 7: evaluation
+# ---------------------------------------------------------------------------
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def eval_path(tmp, dev, smi):
+    """Phase 7: cli.test scores phase 6's flagship checkpoint on a test
+    split of synth_mc; early exit against plain greedy on a training
+    song; the decode kernels' batch invariance under compaction."""
+    import torch
+    from yourmt3_tpu_torch.cli import test as cli_test
+    from yourmt3_tpu_torch.data.preprocess.synth import build_synth_dataset
+    from yourmt3_tpu_torch.models import decoding
+    from yourmt3_tpu_torch.ops import decode_attention as da
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    from yourmt3_tpu_torch.train.checkpoint import read_meta
+
+    data = os.environ["YMT3_DATA_HOME"]
+    ckpt = os.path.join(tmp, "flagship_run", "last")
+    layers = read_meta(ckpt)["model"]["num_decoder_layers"]
+    seconds, n_tracks = 8.0, 2
+    build_synth_dataset(data, n_tracks=n_tracks, duration=seconds,
+                        splits=("test",), programs=SYNTH_MC_PROGRAMS, seed=7,
+                        dataset_name="synthmc")
+    out_json = os.path.join(tmp, "eval.json")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = cli_test.main(["-ckpt", ckpt, "-d", "synth_mc", "--split", "test",
+                             "--kv-quant", "int8c4p", "--weight-quant", "int8",
+                             "-b", "8", "--output-json", out_json])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, paged = ia.int4_cross_attention.launches, da.paged_decode_attention.launches
+    greedy, beam = decoding.greedy_decode.steps, decoding.beam_decode.steps
+    with open(out_json) as f:
+        res = json.load(f)["synthmc"]
+    assert res == json.loads(json.dumps(results["synthmc"]))
+    missing = [k for k in EVAL_KEYS if k not in res]
+    assert not missing, missing
+    assert sorted(res.get("offset_diagnostic", {"n_pairs": 0.0})) in (
+        sorted(OFFSET_KEYS), ["n_pairs"]), res.get("offset_diagnostic")
+    assert res["num_tracks"] == n_tracks, res
+    assert all(np.isfinite(v) for v in res.values() if isinstance(v, float)), res
+    audio_s = seconds * n_tracks
+    log(f"[{smi}] cli.test perceiver_tf_mc13 int8c4p + int8 weights, phase 6 "
+        f"checkpoint, synth_mc test split ({n_tracks} tracks of {seconds} s, "
+        f"batch 8): {wall:.2f} s incl. load = {audio_s / wall:.3f} audio-s/s; "
+        f"decode steps greedy {greedy} + beam {beam}; int4 kernel launches "
+        f"{launches}; paged kernel launches {paged}; "
+        + " ".join(f"{k}={v:.4f}" for k, v in res.items() if isinstance(v, float))
+        + f"; offset_diagnostic {res.get('offset_diagnostic', 'absent (no pairs)')}")
+    assert launches == layers * (greedy + beam) and launches > 0, (launches, greedy, beam)
+    assert paged == 0, paged
+    early_exit_vs_plain(ckpt, os.path.join(data, "synthmc", "train",
+                                           "synthmc_train_000.wav"), smi)
+    batch_invariance(dev, smi)
+    return dict(launches=launches, wall=wall, audio_s=audio_s)
+
+
+class Top2Recorder:
+    """Wraps a model's decode_step while active: keeps each step's top two
+    logits per stream, (steps, S, 2)."""
+
+    def __init__(self, model):
+        self.model, self.rows = model, []
+
+    def __enter__(self):
+        import torch
+        step = self.model.decode_step
+
+        def recording(*a, **kw):
+            logits, kvs = step(*a, **kw)
+            self.rows.append(torch.topk(logits, 2, dim=-1).values)
+            return logits, kvs
+
+        self.model.decode_step = recording
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.decode_step
+
+    def values(self):
+        import torch
+        return torch.stack(self.rows).float().cpu().numpy()
+
+
+def parting_streams(label, plain, early, top2):
+    """Streams whose early-exit ids differ from the plain decode's: each is
+    printed with its first differing step and the plain decode's top-two
+    logit margin there; → (identical streams, the widest margin in bf16
+    ulps)."""
+    a = plain.reshape(-1, plain.shape[-1]).cpu().numpy()
+    b = early.reshape(-1, early.shape[-1]).cpu().numpy()
+    worst = 0.0
+    parted = np.nonzero((a != b).any(axis=1))[0]
+    for s in parted:
+        j = int(np.argmax(a[s] != b[s]))
+        hi, lo = top2[j, s]
+        ulps = (hi - lo) / bf16_ulp(hi)
+        worst = max(worst, ulps)
+        log(f"  {label}: stream {s} parts at step {j}: plain {a[s, j]} vs early "
+            f"exit {b[s, j]}; plain top-two logits {hi:.6f} / {lo:.6f}, margin "
+            f"{ulps:.2f} bf16 ulps (limit {MARGIN_ULPS})")
+    return a.shape[0] - len(parted), worst
+
+
+def stop_token(ids, prefix_len, max_length):
+    """(token, chunk, threshold): a token of the plain decode at which
+    stopping leaves some streams running after a chunk boundary while the
+    rest, padded to a power-of-two multiple of 8, fit in `threshold` of
+    the rows: the defaults (64, 0.5) first, then shorter chunks, then the
+    threshold 1.0 of the tests."""
+    rows = ids.reshape(-1, ids.shape[-1])[:, prefix_len:]
+    S = rows.shape[0]
+    tokens, counts = np.unique(rows, return_counts=True)
+    for threshold in (0.5, 1.0):
+        for chunk in (64, 32, 16, 8):
+            for tok in tokens[np.argsort(-counts, kind="stable")]:
+                hit = rows == tok
+                first = np.where(hit.any(axis=1), hit.argmax(axis=1) + prefix_len,
+                                 max_length)
+                for k in range(1, max_length // chunk):
+                    active = int((first >= k * chunk).sum())
+                    padded = 8
+                    while padded < active:
+                        padded *= 2
+                    if 0 < active and padded <= threshold * S:
+                        return int(tok), chunk, threshold
+    raise AssertionError("no token of the plain decode stops the streams apart")
+
+
+def early_exit_vs_plain(ckpt, wav, smi):
+    """Phase 7e: api.transcribe_audio_array with and without early_exit
+    (repair off) on one training song, the ids taken from the API's own
+    decoder calls; then, because phase 6's checkpoint ends every stream
+    at its second token (so nothing is left to compact), the early-exit
+    decode at a stop token on the full-width flagship of phase 3b (the
+    int4 kernel) and on t5_small's fast path (the paged kernel, 48 streams
+    whose compaction changes its range split). The plain decodes keep
+    their top two logits per step for the margin rule."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.data.audio_io import load_audio_file
+    from yourmt3_tpu_torch.models import decoding
+    from yourmt3_tpu_torch.ops import decode_attention as da
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+
+    bundle = api.load_checkpoint(ckpt, **FLAGSHIP)
+    layers = bundle.cfg.num_decoder_layers
+    audio, sr = load_audio_file(wav, bundle.audio_cfg.sample_rate)
+    ids, rec = {}, Top2Recorder(bundle.model)
+    plain_fn, early_fn = api.greedy_decode, api.greedy_decode_early_exit
+
+    def plain(*a, **kw):
+        with rec:
+            ids["plain"] = plain_fn(*a, **kw)
+        return ids["plain"]
+
+    def early(*a, **kw):
+        ids["early"] = early_fn(*a, **kw)
+        return ids["early"]
+
+    api.greedy_decode, api.greedy_decode_early_exit = plain, early
+    walls, notes = {}, {}
+    try:
+        for name, flag in (("plain", False), ("early", True)):
+            reset_counts()
+            decoding.greedy_decode_early_exit.compactions = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            notes[name], _ = api.transcribe_audio_array(
+                bundle, audio, sr, batch_size=8, early_exit=flag, repair_beam=0)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            steps, launches = decoding.greedy_decode.steps, ia.int4_cross_attention.launches
+            assert launches == layers * steps and steps > 0, (name, launches, steps)
+            walls[name + "_steps"] = steps
+    finally:
+        api.greedy_decode, api.greedy_decode_early_exit = plain_fn, early_fn
+    same, worst = parting_streams("checkpoint", ids["plain"], ids["early"], rec.values())
+    lengths = (ids["plain"] != 0).sum(-1)
+    log(f"[{smi}] early exit vs plain greedy through api.transcribe_audio_array, "
+        f"perceiver_tf_mc13 int8c4p + int8 weights, phase 6 checkpoint, "
+        f"{len(audio) / sr:.2f} s training song ({lengths.numel()} streams, "
+        f"lengths {int(lengths.min())}-{int(lengths.max())} tokens): plain "
+        f"{walls['plain']:.3f} s ({walls['plain_steps']} steps), early exit "
+        f"{walls['early']:.3f} s ({walls['early_steps']} steps, "
+        f"{decoding.greedy_decode_early_exit.compactions} compactions); {same} of "
+        f"{lengths.numel()} streams identical; notes {len(notes['plain'])} / "
+        f"{len(notes['early'])}")
+    assert worst <= MARGIN_ULPS, worst
+    if same == lengths.numel():
+        assert notes["plain"] == notes["early"]
+    del bundle
+    for preset, task, overrides, seconds, rows, L, kernel in (
+            ("perceiver_tf_mc13", "mc13_full_plus_256", FLAGSHIP, 16.0, 8, 256,
+             ia.int4_cross_attention),
+            ("t5_small", "mt3_full_plus", api.fast_decode_overrides(1, 1024),
+             100.0, 48, 512, da.paged_decode_attention)):
+        fresh = api.init_model(preset, task, seed=0, **overrides)
+        early_exit_at_stop_token(fresh, sine_song(seconds), rows, L, kernel, smi)
+        del fresh
+
+
+def early_exit_at_stop_token(bundle, audio, rows, L, kernel, smi):
+    """greedy_decode_early_exit against greedy_decode (both given the same
+    memory and cross K/V) on the first `rows` segments of `audio`, to
+    step L, stopping at stop_token's choice; `kernel` is the wrapper of
+    the path's kernel, whose launches must be one per decoder layer and
+    step."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.data.audio_io import slice_padded_array
+    from yourmt3_tpu_torch.models import decoding
+
+    model, prefix = bundle.model, bundle.task_manager.subtask_prefix_ids()
+    segs, _ = slice_padded_array(audio, bundle.audio_cfg.input_frames)
+    assert len(segs) >= rows, (len(segs), rows)
+    ids, walls = {}, {}
+    with torch.no_grad():
+        mem = api._encode_batch(bundle, np.ascontiguousarray(segs[:rows], np.float32))
+        cross = model.init_cross_kv(mem)
+        free = decoding.greedy_decode(model, mem, L, prefix_ids=prefix, cross_kvs=cross)
+        stop, chunk, threshold = stop_token(free.cpu().numpy(), len(prefix), L)
+        for name in ("plain", "early"):
+            reset_counts()
+            decoding.greedy_decode_early_exit.compactions = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "plain":
+                with Top2Recorder(model) as rec:
+                    ids[name] = decoding.greedy_decode(
+                        model, mem, L, prefix_ids=prefix, eos_id=stop, cross_kvs=cross)
+            else:
+                ids[name] = decoding.greedy_decode_early_exit(
+                    model, mem, L, prefix_ids=prefix, eos_id=stop, chunk=chunk,
+                    compact_threshold=threshold, cross_kvs=cross)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            steps, launches = decoding.greedy_decode.steps, kernel.launches
+            assert launches == bundle.cfg.num_decoder_layers * steps and steps > 0, (
+                name, launches, steps)
+            walls[name + "_steps"] = steps
+    compactions = decoding.greedy_decode_early_exit.compactions
+    label = f"{bundle.cfg.name} {bundle.cfg.kv_quant}"
+    same, worst = parting_streams(label, ids["plain"], ids["early"], rec.values())
+    lengths = (ids["plain"] != 0).sum(-1)
+    log(f"[{smi}] early exit vs plain greedy, full-width {label} "
+        f"(use_pallas_decode={bundle.cfg.use_pallas_decode}, weights "
+        f"{bundle.cfg.weight_quant}, random from seed 0), {rows} segments of a "
+        f"sine song, L {L}, stop token {stop}, chunk {chunk}, threshold "
+        f"{threshold} ({lengths.numel()} streams, lengths {int(lengths.min())}-"
+        f"{int(lengths.max())} tokens): plain {walls['plain']:.3f} s "
+        f"({walls['plain_steps']} steps), early exit {walls['early']:.3f} s "
+        f"({walls['early_steps']} steps, {compactions} compactions); {same} of "
+        f"{lengths.numel()} streams identical; {kernel.__name__} launches "
+        f"{kernel.launches} in the early-exit run")
+    assert compactions >= 1, compactions
+    assert worst <= MARGIN_ULPS, worst
+
+
+def batch_invariance(dev, smi):
+    """Phase 7f: each decode kernel on a full batch and on the kept
+    streams of a compacted one (the cache rows gathered as
+    reorder_cache_streams gathers them); max |diff| of the kept rows."""
+    import torch
+    from yourmt3_tpu_torch.models.decoding import reorder_cache_streams
+    from yourmt3_tpu_torch.ops import decode_attention as da
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    gen = torch.Generator().manual_seed(9)
+    full = 48
+    table = (torch.randn(BUCKETS, H, generator=gen) * 0.5).to(dev)
+    dist = da.distance_buckets(BUCKETS, MAXD).to(dev)
+    pages = make_pages(full, True, gen, dev)
+    q = torch.randn(full, H, DK, generator=gen).to(dev).to(torch.bfloat16)
+    for pos in (511, 1023):
+        want = da.paged_decode_attention(q, pages["k"], pages["v"], pos,
+                                         rel_table=table, dist_buckets=dist,
+                                         k_scale=pages["ks"], v_scale=pages["vs"])
+        for kept in (8, 16):
+            idx = torch.randperm(full, generator=gen)[:kept].sort().values.to(dev)
+            k, v, ks, vs = reorder_cache_streams(
+                [pages["k"], pages["v"], pages["ks"], pages["vs"]], idx)
+            got = da.paged_decode_attention(q[idx], k, v, pos, rel_table=table,
+                                            dist_buckets=dist, k_scale=ks, v_scale=vs)
+            diff = (got.float() - want[idx].float()).abs().max().item()
+            log(f"[{smi}] batch invariance, paged kernel (t5_small width, int8 "
+                f"pages, pos {pos}): {kept} of {full} streams "
+                f"({da.decode_splits(kept, H, pos)[0]} ranges) vs the full batch "
+                f"({da.decode_splits(full, H, pos)[0]} ranges): max|diff| {diff:.3e}")
+    full = 104
+    kv = int4_inputs(full, gen, dev)
+    q = torch.randn(full, H4, DK4, generator=gen).to(dev).to(torch.bfloat16)
+    want = ia.int4_cross_attention(q, *kv)
+    for kept in (8, 16):
+        idx = torch.randperm(full, generator=gen)[:kept].sort().values.to(dev)
+        got = ia.int4_cross_attention(q[idx], *reorder_cache_streams(kv, idx))
+        diff = (got.float() - want[idx].float()).abs().max().item()
+        log(f"[{smi}] batch invariance, int4 cross kernel (S {full}, T {T4}): "
+            f"{kept} of {full} streams vs the full batch: max|diff| {diff:.3e}")
+    torch.cuda.synchronize()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--kernels-only", action="store_true",
@@ -1235,6 +1573,7 @@ def main(argv=None) -> int:
         launches = main_path(tmp)
         launches4 = flagship_path(tmp)
         trained = train_path(tmp)
+        eval_path(tmp, dev, smi)
     kernel_in_model()
     flagship_in_model()
     where_time_goes("t5_small", api.init_model(

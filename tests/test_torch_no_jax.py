@@ -4,6 +4,7 @@ CUDA unless the caller asks for the CPU."""
 
 import ast
 import pathlib
+import types
 
 import pytest
 import torch
@@ -49,10 +50,21 @@ def test_no_ctypes_in_the_kernel_ops():
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.cli import test as cli_test
     from yourmt3_tpu_torch.cli import train as cli_train
     from yourmt3_tpu_torch.cli import transcribe as cli
+    from yourmt3_tpu_torch.eval.evaluator import evaluate_file_dataset
+    from yourmt3_tpu_torch.train.checkpoint import save_bundle
 
+    ckpt = tmp_path / "ckpt"
+    save_bundle(str(ckpt), api.init_model("t5_tiny", "mt3_full_plus_256",
+                                          device="cpu"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_test.main(["-ckpt", str(ckpt)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        # a bundle placed on the CUDA device
+        evaluate_file_dataset(types.SimpleNamespace(device=torch.device("cuda")), [])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.init_model("t5_tiny", "mt3_full_plus_256")
     wav = tmp_path / "x.wav"
@@ -81,8 +93,10 @@ def test_unported_options_raise():
     """What the port does not carry yet raises, naming its ROADMAP item:
     the MoE flagship, the conformer encoder, the non-identity projections
     of the T5 encoder, the rope/alibi Perceiver positions, the
-    D-Adaptation optimizer and data-parallel training."""
+    D-Adaptation optimizer, data-parallel training and the evaluator's
+    chunk-parallel mesh."""
     from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.eval.evaluator import evaluate_file_dataset
     from yourmt3_tpu_torch.train.optim import make_optimizer
     from yourmt3_tpu_torch.train.trainer import train
     cases = [("perceiver_tf_mc13_moe", "mc13_full_plus_256", {}),
@@ -98,3 +112,5 @@ def test_unported_options_raise():
     bundle = api.init_model("t5_tiny", "mt3_full_plus_256", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(bundle, iter(()), n_data_shards=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
+        evaluate_file_dataset(bundle, [], mesh=object())

@@ -3,12 +3,26 @@ by the JAX package and by the port, with the JAX weights bridged into the
 port through `state_dict_from_jax`. Both run on the CPU in fp32."""
 
 import numpy as np
+import pytest
+import torch
 
 import jax
 
 from yourmt3_tpu.api import init_model as jax_init_model
 from yourmt3_tpu_torch.api import init_model as port_init_model
 from yourmt3_tpu_torch.weights import state_dict_from_jax
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """Autouse in the modules that import it: torch runs one intra-op
+    thread there. Their decode loops are thousands of tiny ops, and when
+    the parallel test run's workers share the cores, each op's thread
+    barrier waits on threads of other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def numpy_params(params):

@@ -1,9 +1,9 @@
 """Public inference API: init_model(...) + transcribe(audio) → MIDI.
 
 load → resample to 16 kHz mono → slice into segments → batch → frontend
-→ encoder → greedy decode → detokenize and merge → MIDI file. Segments
-are batched to a fixed batch size (zero-padded) so every batch has one
-shape.
+→ encoder → greedy decode → detokenize (on the device of the decoded
+ids) and merge → MIDI file. Segments are batched to a fixed batch size
+(zero-padded) so every batch has one shape.
 
 The entry points run on the CUDA device by default and raise when there
 is none; the CPU is used only when the caller passes device="cpu".
@@ -24,7 +24,8 @@ import torch
 from .config.audio import AudioConfig, DEFAULT_AUDIO
 from .config.model import ModelConfig, get_model_config
 from .data.audio_io import load_audio_file, resample, slice_padded_array
-from .models.decoding import beam_decode, greedy_decode
+from .models.decoding import (beam_decode, greedy_decode,
+                               greedy_decode_early_exit)
 from .models.ymt3 import YMT3
 from .ops.frontend import SpectrogramFrontend
 from .tokens.dataclasses import Note
@@ -143,19 +144,26 @@ def _padded_batches(segments: np.ndarray, rows: Sequence[int],
 @torch.no_grad()
 def transcribe_segments_array(
     bundle: ModelBundle, segments: np.ndarray, start_times: Sequence[float],
-    batch_size: int = 8, subtask: Optional[str] = None, beam_size: int = 1,
-    repetition_guard: int = 0, repair_beam: int = 0, decode_phases: int = 1,
+    batch_size: int = 8, subtask: Optional[str] = None,
+    early_exit: bool = False, decode_phases: int = 1, beam_size: int = 1,
+    repetition_guard: int = 0, repair_beam: int = 0,
 ) -> Tuple[List[Note], DecodeErrors]:
     """Pre-sliced (S, input_frames) segments + their start times → merged
-    notes. beam_size > 1 decodes every segment with beam search.
+    notes. beam_size > 1 decodes every segment with beam search;
+    early_exit=True decodes with per-stream retirement
+    (models/decoding.greedy_decode_early_exit, the same tokens); the two
+    exclude each other.
 
     repair_beam > 1 runs validate-and-repair decode: after the greedy
     pass, only the segments the detokenizer's merge walk implicates are
     re-decoded with beam search of that width, and the repaired ids are
     kept only if they strictly reduce the total detokenizer errors."""
-    if repetition_guard > 0 and beam_size > 1:
-        raise ValueError("repetition_guard>0 is only supported on the greedy "
-                         "path (not beam_size>1)")
+    if beam_size > 1 and early_exit:
+        raise ValueError("beam_size>1 and early_exit are mutually exclusive")
+    if repetition_guard > 0 and (beam_size > 1 or early_exit):
+        raise ValueError(
+            "repetition_guard>0 is only supported on the plain greedy path "
+            "(not beam_size>1 or early_exit) — drop one of the flags")
     ac = bundle.audio_cfg
     tm = bundle.task_manager
     prefix = tm.subtask_prefix_ids(subtask)
@@ -170,14 +178,21 @@ def transcribe_segments_array(
             ids = beam_decode(bundle.model, memory, L, beam_size=beam_size,
                               prefix_ids=prefix)
         else:
-            ids = greedy_decode(bundle.model, memory, L, prefix_ids=prefix,
-                                phases=decode_phases,
-                                repetition_guard=repetition_guard)
-        all_ids.append(ids.cpu().numpy()[: len(block)])
-    seg_ids = np.concatenate(all_ids, axis=0)  # (S, C, L)
+            cross_kvs = bundle.model.init_cross_kv(memory)
+            if early_exit:
+                ids = greedy_decode_early_exit(bundle.model, memory, L,
+                                               prefix_ids=prefix,
+                                               cross_kvs=cross_kvs)
+            else:
+                ids = greedy_decode(bundle.model, memory, L, prefix_ids=prefix,
+                                    phases=decode_phases, cross_kvs=cross_kvs,
+                                    repetition_guard=repetition_guard)
+        all_ids.append(ids[: len(block)])
+    seg_ids = torch.cat(all_ids)  # (S, C, L) on the device
     notes, errors = tm.detokenize_song(seg_ids, list(start_times))
     if repair_beam > 1 and beam_size == 1 and errors.total() > 0:
-        repaired = _repair_error_segments(bundle, segments, seg_ids,
+        repaired = _repair_error_segments(bundle, segments,
+                                          seg_ids.cpu().numpy(),
                                           list(start_times), prefix, L,
                                           batch_size, repair_beam)
         if repaired is not None:
@@ -225,19 +240,21 @@ def _repair_error_segments(
 
 def transcribe_audio_array(
     bundle: ModelBundle, audio: np.ndarray, sample_rate: Optional[int] = None,
-    batch_size: int = 8, subtask: Optional[str] = None, beam_size: int = 1,
-    repetition_guard: int = 0, repair_beam: int = 0, decode_phases: int = 1,
+    batch_size: int = 8, subtask: Optional[str] = None,
+    early_exit: bool = False, decode_phases: int = 1, beam_size: int = 1,
+    repetition_guard: int = 0, repair_beam: int = 0,
 ) -> Tuple[List[Note], DecodeErrors]:
-    """Full-song mono float32 audio → merged notes."""
+    """Full-song mono float32 audio → merged notes (the options are those
+    of transcribe_segments_array)."""
     ac = bundle.audio_cfg
     if sample_rate is not None and sample_rate != ac.sample_rate:
         audio = resample(audio, sample_rate, ac.sample_rate)
     segments, starts = slice_padded_array(audio, ac.input_frames)
     return transcribe_segments_array(
         bundle, segments, (starts / ac.sample_rate).tolist(),
-        batch_size=batch_size, subtask=subtask, beam_size=beam_size,
-        repetition_guard=repetition_guard, repair_beam=repair_beam,
-        decode_phases=decode_phases)
+        batch_size=batch_size, subtask=subtask, early_exit=early_exit,
+        decode_phases=decode_phases, beam_size=beam_size,
+        repetition_guard=repetition_guard, repair_beam=repair_beam)
 
 
 def transcribe(bundle: ModelBundle, audio_path: str,

@@ -6,17 +6,75 @@ place. The host reads the "all done" flag only once every `unroll` steps,
 so the steps between two reads can be captured as one CUDA graph later;
 finished streams emit PAD, so the extra steps leave the tokens unchanged.
 Channels are folded into the batch by the caller's model, so one loop
-serves single- and multi-channel decoders.
+serves single- and multi-channel decoders. `greedy_decode_early_exit`
+runs the same step in chunks and drops finished streams from the batch
+between chunks.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..tokens.codec import EOS_ID, PAD_ID
 from .ymt3 import YMT3
+
+
+class _GreedyState:
+    """The loop state of a greedy decode: decoder inputs (S, L+1), the
+    done flags, the self caches, the repetition-guard run lengths and the
+    lockstep position (a host int)."""
+
+    def __init__(self, model: YMT3, streams: int, max_length: int, dev):
+        self.buf = torch.full((streams, max_length + 1), PAD_ID,
+                              dtype=torch.long, device=dev)
+        self.buf[:, 0] = model.cfg.decoder_start_token_id
+        self.done = torch.zeros(streams, dtype=torch.bool, device=dev)
+        self.self_kvs = model.empty_self_kvs(streams, max_length, dev)
+        self.rep = torch.zeros(streams, dtype=torch.long, device=dev)
+        self.rep2 = torch.zeros(streams, dtype=torch.long, device=dev)
+        self.pos = 0
+
+
+def _greedy_steps(model: YMT3, st: _GreedyState, limit: int, cross_kvs,
+                  prefix: List[int], eos_id: int, kv_len: int = 0,
+                  unroll: int = 1, ban_eos: bool = False,
+                  repetition_guard: int = 0) -> None:
+    """Run greedy steps on `st` in place until `limit` or until every
+    stream is done, reading "all done" on the host every `unroll` steps."""
+    P = len(prefix)
+    while st.pos < limit and not bool(st.done.all()):
+        for _ in range(unroll):
+            pos, buf, done = st.pos, st.buf, st.done
+            tok = buf[:, pos:pos + 1]
+            logits, st.self_kvs = model.decode_step(tok, pos, st.self_kvs,
+                                                    cross_kvs, kv_len=kv_len)
+            if ban_eos:
+                logits[:, eos_id] = -1e9
+            nxt = torch.argmax(logits, dim=-1)
+            if pos < P:
+                nxt = torch.full_like(nxt, prefix[pos])
+            if repetition_guard > 0:
+                if pos < P:
+                    st.rep = torch.zeros_like(st.rep)
+                    st.rep2 = torch.zeros_like(st.rep2)
+                else:
+                    live = ~done
+                    st.rep = torch.where(live & (nxt == tok[:, 0]), st.rep + 1, 1)
+                    in_cycle = live & (nxt == buf[:, max(pos - 1, 0)])
+                    if pos < 1:
+                        in_cycle = torch.zeros_like(in_cycle)
+                    st.rep2 = torch.where(in_cycle, st.rep2 + 1, 1)
+                    trip = (st.rep >= repetition_guard) | (
+                        st.rep2 >= 2 * repetition_guard)
+                    nxt = torch.where(trip & live, eos_id, nxt)
+            nxt = torch.where(done, PAD_ID, nxt)
+            st.done = done | (nxt == eos_id)
+            buf[:, pos + 1] = nxt
+            st.pos += 1
+            greedy_decode.steps += 1
 
 
 def greedy_decode(
@@ -35,8 +93,6 @@ def greedy_decode(
 ) -> torch.Tensor:
     """→ (B, C, max_length) int64 token ids (PAD-filled after EOS)."""
     B, C = memory.shape[0], memory.shape[1]
-    BS = B * C
-    dev = memory.device
     if max_length % unroll or max_length % phases:
         raise ValueError(f"unroll={unroll} and phases={phases} must divide "
                          f"max_length={max_length}")
@@ -48,62 +104,85 @@ def greedy_decode(
 
     if cross_kvs is None:
         cross_kvs = model.init_cross_kv(memory)
-    self_kvs = model.empty_self_kvs(BS, max_length, dev)
+    st = _GreedyState(model, B * C, max_length, memory.device)
     prefix = list(prefix_ids or [])
-    P = len(prefix)
-
-    buf = torch.full((BS, max_length + 1), PAD_ID, dtype=torch.long, device=dev)
-    buf[:, 0] = model.cfg.decoder_start_token_id
-    done = torch.zeros(BS, dtype=torch.bool, device=dev)
-    rep = torch.zeros(BS, dtype=torch.long, device=dev)
-    rep2 = torch.zeros(BS, dtype=torch.long, device=dev)
-    pad = torch.full((BS,), PAD_ID, dtype=torch.long, device=dev)
-    eos = torch.full((BS,), eos_id, dtype=torch.long, device=dev)
-
-    pos = 0
     span = max_length // phases
     for p in range(phases):
         limit = (p + 1) * span
-        kv_len = 0 if limit == max_length else limit
-        while pos < limit and not bool(done.all()):
-            for _ in range(unroll):
-                tok = buf[:, pos:pos + 1]
-                logits, self_kvs = model.decode_step(tok, pos, self_kvs,
-                                                     cross_kvs, kv_len=kv_len)
-                if ban_eos:
-                    logits[:, eos_id] = -1e9
-                nxt = torch.argmax(logits, dim=-1)
-                if pos < P:
-                    nxt = torch.full_like(nxt, prefix[pos])
-                if repetition_guard > 0:
-                    if pos < P:
-                        rep = torch.zeros_like(rep)
-                        rep2 = torch.zeros_like(rep2)
-                    else:
-                        live = ~done
-                        rep = torch.where(live & (nxt == tok[:, 0]), rep + 1, 1)
-                        in_cycle = live & (nxt == buf[:, max(pos - 1, 0)])
-                        if pos < 1:
-                            in_cycle = torch.zeros_like(in_cycle)
-                        rep2 = torch.where(in_cycle, rep2 + 1, 1)
-                        trip = (rep >= repetition_guard) | (
-                            rep2 >= 2 * repetition_guard)
-                        nxt = torch.where(trip & live, eos, nxt)
-                nxt = torch.where(done, pad, nxt)
-                done = done | (nxt == eos_id)
-                buf[:, pos + 1] = nxt
-                pos += 1
-                greedy_decode.steps += 1
-    return buf[:, 1:].reshape(B, C, max_length)
+        _greedy_steps(model, st, limit, cross_kvs, prefix, eos_id,
+                      kv_len=0 if limit == max_length else limit,
+                      unroll=unroll, ban_eos=ban_eos,
+                      repetition_guard=repetition_guard)
+    return st.buf[:, 1:].reshape(B, C, max_length)
 
 
-greedy_decode.steps = 0  # decode steps run since the last reset
+greedy_decode.steps = 0  # greedy steps run since the last reset (both
+# greedy decoders)
+
+
+def greedy_decode_early_exit(
+    model: YMT3,
+    memory: torch.Tensor,  # (B, C, T, D)
+    max_length: int,
+    prefix_ids: Optional[Sequence[int]] = None,
+    eos_id: int = EOS_ID,
+    chunk: int = 64,
+    compact_threshold: float = 0.5,
+    cross_kvs=None,  # precomputed model.init_cross_kv(memory); callers
+    # comparing decodes pass the same tensors to each
+) -> torch.Tensor:
+    """Greedy decode that retires finished streams: it decodes in
+    `chunk`-step runs of greedy_decode's step and, between runs, reads the
+    done flags on the host. When the active streams, padded to a
+    power-of-two multiple of 8, fit in `compact_threshold` of the current
+    rows, finished rows go to a host buffer and the active rows (padded by
+    repeating row 0 with done=True) are gathered in the decoder inputs,
+    the self caches and the cross K/V. Tokens equal greedy_decode's.
+    → (B, C, max_length) int64 token ids on memory's device."""
+    B, C = memory.shape[0], memory.shape[1]
+    S = B * C
+    dev = memory.device
+    if cross_kvs is None:
+        cross_kvs = model.init_cross_kv(memory)
+    st = _GreedyState(model, S, max_length, dev)
+    prefix = list(prefix_ids or [])
+    out = np.full((S, max_length + 1), PAD_ID, np.int64)
+    order = np.arange(S)  # current row → original stream row
+
+    while True:
+        _greedy_steps(model, st, min(st.pos + chunk, max_length), cross_kvs,
+                      prefix, eos_id)
+        done_h = st.done.cpu().numpy()[: len(order)]
+        if st.pos >= max_length or done_h.all():
+            break
+        n_active = int((~done_h).sum())
+        padded = 8
+        while padded < n_active:
+            padded *= 2
+        if padded <= compact_threshold * len(done_h):
+            fin = np.nonzero(done_h)[0]
+            out[order[fin]] = st.buf[torch.from_numpy(fin).to(dev)].cpu().numpy()
+            act = np.nonzero(~done_h)[0]
+            idx = torch.from_numpy(np.concatenate(
+                [act, np.zeros(padded - n_active, np.int64)])).to(dev)
+            st.buf = st.buf.index_select(0, idx)
+            st.done = torch.arange(padded, device=dev) >= n_active
+            st.self_kvs = reorder_cache_streams(st.self_kvs, idx)
+            cross_kvs = reorder_cache_streams(cross_kvs, idx)
+            order = order[act]
+            greedy_decode_early_exit.compactions += 1
+
+    out[order] = st.buf[: len(order)].cpu().numpy()
+    return torch.from_numpy(out[:, 1:]).reshape(B, C, max_length).to(dev)
+
+
+greedy_decode_early_exit.compactions = 0  # compactions since the last reset
 
 
 def reorder_cache_streams(kvs, parent: torch.Tensor):
-    """Gather beam-parent streams in every cache tensor. `parent` is a
-    flat (S·K,) index into the stream axis: axis 1 for paged (5-D)
-    tensors, axis 0 for everything else."""
+    """Gather streams in every cache tensor (beam parents, or the active
+    rows of a compaction). `parent` is a flat index into the stream axis:
+    axis 1 for paged (5-D) tensors, axis 0 for everything else."""
     if isinstance(kvs, (list, tuple)):
         return type(kvs)(reorder_cache_streams(x, parent) for x in kvs)
     return torch.index_select(kvs, 1 if kvs.ndim == 5 else 0, parent)

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from ..config.audio import AudioConfig, DEFAULT_AUDIO
 from ..config.task import TaskConfig, get_task
@@ -37,6 +38,7 @@ class TaskManager:
         self._prog_to_class = self.task.program_vocab.program_to_class_array()
         self._prog_to_canonical = self.task.program_vocab.program_to_canonical_array()
         self._drum_to_canonical = self.task.drum_vocab.note_to_canonical_array()
+        self._fast_detok = None  # built on first use
 
     # ---- sizes the model needs -----------------------------------------
     @property
@@ -140,14 +142,28 @@ class TaskManager:
                          for t in start_times], axis=0)
 
     # ---- detokenize -----------------------------------------------------
-    def detokenize_song(self, segment_ids: np.ndarray,
-                        start_times: Sequence[float]
+    def detokenize_song(self, segment_ids: Union[np.ndarray, torch.Tensor],
+                        start_times: Sequence[float],
+                        fast: bool = True
                         ) -> Tuple[List[Note], DecodeErrors]:
         """(S, C, L) predicted ids → merged full-song notes.
 
-        Walks the tokens in Python (reference semantics). The vectorized
-        extraction front half is not ported yet (ROADMAP Queue 1).
+        fast=True runs the vectorized extraction front half
+        (tokens/fast_detok.py) on the device of the ids it is given, as the
+        reference package's default does; fast=False walks the tokens in
+        Python. Their error counts can differ: the walk counts events
+        before or without a `tie` token as dropped (see
+        tokens/fast_detok.py).
         """
+        if fast:
+            if self._fast_detok is None:
+                from .fast_detok import FastDetokenizer
+                self._fast_detok = FastDetokenizer(self.codec)
+            return self._fast_detok.detokenize_song(
+                segment_ids, start_times,
+                default_programs=self.channel_default_programs)
+        if isinstance(segment_ids, torch.Tensor):
+            segment_ids = segment_ids.cpu().numpy()
         segment_ids = np.asarray(segment_ids)
         if segment_ids.ndim == 2:
             segment_ids = segment_ids[:, None, :]
