@@ -64,6 +64,29 @@ Phases:
      f. batch invariance: the paged kernel (48 streams, int8 pages, pos
         511 and 1023) and the int4 kernel (104 streams) on the kept rows of
         a compacted batch (8 and 16 streams) against the full batch.
+  8. the MoE flagship and the conformer, slice 5, each path with every
+     launch count set to 0 just before it and read just after:
+     a. perceiver_tf_mc13_moe (8 experts, top-2, in every Perceiver-TF
+        block) at full width with kv_quant="int8c4p" and int8 decoder
+        weights: api.init_model + api.transcribe on phase 3b's seeded 16 s
+        song (batch 8, 104 streams, the beam-2 repair); the int4 kernel's
+        launches must equal 8 x the decode steps run and the paged kernel
+        must not launch; then the encoder of one batch under
+        torch.profiler: its device ms and the MoE FFs' share of them, and
+        a profiled window of 32 decode steps (as in phase 5);
+     b. conformer_small: the CLI transcribes phase 3a's 6 s WAV through
+        --decode-path fast (L = 1024: the int8 paged kernel) with the
+        beam-2 repair; the paged kernel's launches must equal 8 x the
+        decode steps run; then its encoder's device ms on a batch of 8
+        and a profiled window of 32 decode steps;
+     c. every other encoder option at full width in fp32, the card against
+        the CPU on one seeded batch of 2 segments, same weights: the
+        flagship with ptf_pos_enc "rope" and "alibi" and with proj_type
+        "group-conv"; conformer_small with proj_type "mlp",
+        "depthwise-conv" and "linear-forced"; t5_small with ff_act "moe".
+        The encoder output must agree within TOL_MODEL_FP32 and the
+        decoder memory (bf16 after a projection layer) within
+        MEMORY_ULPS bf16 ulps.
 
 Any failure raises: nothing is caught and nothing falls back. The last
 line is {"ok": true, "device": {...}}; the line before it lists each
@@ -127,6 +150,21 @@ EVAL_KEYS = ("onset_f1", "offset_f1", "multi_f1", "drum_f1", "onset_precision",
              "decode_errors", "num_tracks", "per_class")
 OFFSET_KEYS = ("n_pairs", "mean_signed_s", "median_signed_s", "std_s",
                "p_early", "p_late", "p_within_tol")
+# phase 8c: bf16 decoder memory on the card against the CPU, in bf16 ulps
+# taken at magnitude 1 or more: fp32 encoder outputs ~1e-5 apart round to
+# bf16 one ulp apart now and then, and the mlp projection's second layer
+# can carry such a difference into one more ulp
+MEMORY_ULPS = 2
+# phase 8c: each option as (preset, task, overrides)
+OPTIONS = (
+    ("perceiver_tf_mc13", "mc13_full_plus_256", {"ptf_pos_enc": "rope"}),
+    ("perceiver_tf_mc13", "mc13_full_plus_256", {"ptf_pos_enc": "alibi"}),
+    ("perceiver_tf_mc13", "mc13_full_plus_256", {"proj_type": "group-conv"}),
+    ("conformer_small", "mt3_full_plus", {"proj_type": "mlp"}),
+    ("conformer_small", "mt3_full_plus", {"proj_type": "depthwise-conv"}),
+    ("conformer_small", "mt3_full_plus", {"proj_type": "linear-forced"}),
+    ("t5_small", "mt3_full_plus", {"ff_act": "moe"}),
+)
 # early exit against plain greedy on the card: a stream may part only
 # where the plain decode's top two logits lie within this many bf16 ulps
 # of the top logit (a batch of another size may round another way)
@@ -994,10 +1032,27 @@ def where_time_goes(label, bundle, audio, first, kernel):
             f"decode {t_greedy:.3f} s ({tm_len} steps, "
             f"{t_greedy / tm_len * 1e3:.2f} ms/step), detokenize {t_detok:.3f} s, "
             f"beam-2 repair {t_repair:.3f} s ({steps} steps)")
+    decode_window(label, model, mem, tm_len, first, kernel)
 
+
+def decode_window(label, model, mem, max_len, first, kernel):
+    """32 decode steps from position `first` on `mem` under torch.profiler:
+    host ms per step, device busy time per step, the device's idle share,
+    and the kernels that take the device's time (`kernel` names the
+    path's own)."""
+    import torch
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    with torch.no_grad():
         cross = model.init_cross_kv(mem)
         S = mem.shape[0] * mem.shape[1]
-        kv = model.empty_self_kvs(S, tm_len)
+        kv = model.empty_self_kvs(S, max_len)
         tok = torch.zeros((S, 1), dtype=torch.long, device=mem.device)
         n = 32
 
@@ -1008,7 +1063,7 @@ def where_time_goes(label, bundle, audio, first, kernel):
                 tok.copy_(logits.argmax(-1, keepdim=True))
 
         window()  # warm-up
-        _, wall = timed(window)
+        wall = timed(window)
         dev_events, by_name = device_profile(window)
     if not dev_events:
         log(f"decode window {label}: the profiler saw no device events; device "
@@ -1532,6 +1587,185 @@ def batch_invariance(dev, smi):
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the MoE flagship and the conformer
+# ---------------------------------------------------------------------------
+
+def moe_flagship_path(tmp, smi):
+    """Phase 8a: the MoE flagship through the public API on phase 3b's
+    song, then its encoder's device time and the MoE FFs' share of it."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.data.audio_io import slice_padded_array, write_wav
+    from yourmt3_tpu_torch.models import decoding
+    from yourmt3_tpu_torch.models.layers import MoEFeedForward
+    from yourmt3_tpu_torch.ops import decode_attention as da
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    from yourmt3_tpu_torch.tokens.midi_io import midi2note
+
+    seconds = 16.0
+    audio = sine_song(seconds)
+    wav = os.path.join(tmp, "moe.wav")
+    write_wav(wav, audio, 16000)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = api.init_model("perceiver_tf_mc13_moe", "mc13_full_plus_256",
+                            seed=0, **FLAGSHIP)
+    t_init = time.perf_counter() - t0
+    out = api.transcribe(bundle, wav, os.path.join(tmp, "moe.mid"), batch_size=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    launches, paged = ia.int4_cross_attention.launches, da.paged_decode_attention.launches
+    greedy, beam = decoding.greedy_decode.steps, decoding.beam_decode.steps
+    assert os.path.exists(out), out
+    notes = midi2note(out)
+    log(f"[{smi}] phase 8a: perceiver_tf_mc13_moe int8c4p + int8 weights, "
+        f"{seconds} s audio (8 segments, 104 streams) in {wall:.2f} s (init "
+        f"{t_init:.2f} s + transcribe {wall - t_init:.2f} s) = "
+        f"{seconds / wall:.3f} audio-s/s ({seconds / (wall - t_init):.3f} "
+        f"without init); decode steps greedy {greedy} + beam {beam}; int4 "
+        f"kernel launches {launches}; paged kernel launches {paged}; notes "
+        f"{len(notes)}; peak device memory {peak:.1f} MiB")
+    layers = bundle.cfg.num_decoder_layers
+    assert launches == layers * (greedy + beam) and launches > 0, (launches, greedy, beam)
+    assert paged == 0, paged
+
+    segs, _ = slice_padded_array(audio, bundle.audio_cfg.input_frames)
+    batch = np.ascontiguousarray(segs[:8], np.float32)
+    model = bundle.model
+    moe = [m for m in model.encoder.modules() if isinstance(m, MoEFeedForward)]
+    inputs = []
+    hooks = [m.register_forward_pre_hook(lambda m, args: inputs.append((m, args[0])))
+             for m in moe]
+    with torch.no_grad():
+        feats = bundle.frontend(torch.from_numpy(batch).to(bundle.device))
+        model.encoder(feats)  # warm-up; keeps each MoE FF's input
+        for h in hooks:
+            h.remove()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.encoder(feats)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3
+        _, enc = device_profile(lambda: model.encoder(feats))
+        _, ff = device_profile(lambda: [m(x) for m, x in inputs])
+    enc_ms = sum(d for _, d in enc.values()) / 1e3
+    moe_ms = sum(d for _, d in ff.values()) / 1e3
+    rows = inputs[0][1].shape[0] * inputs[0][1].shape[1]
+    log(f"[{smi}] phase 8a encoder (batch 8, {len(moe)} MoE FFs of {rows} "
+        f"rows): host {host_ms:.2f} ms; device busy {enc_ms:.2f} ms; the MoE "
+        f"FFs alone {moe_ms:.2f} ms = {moe_ms / enc_ms:.1%} of it")
+    top = sorted(enc.items(), key=lambda kv_: -kv_[1][1])[:6]
+    for name, (cnt, dur) in top:
+        log(f"  {dur / 1e3:.3f} ms  {cnt:4d}x  {name[:90]}")
+    with torch.no_grad():
+        mem = model.projection(model.encoder(feats))
+    decode_window("perceiver_tf_mc13_moe", model, mem,
+                  bundle.task_manager.max_token_length, 112, "int4_cross_kernel")
+    return dict(launches=launches, wall=wall, audio_s=seconds, peak=peak,
+                enc_ms=enc_ms, moe_ms=moe_ms)
+
+
+def conformer_path(tmp, smi):
+    """Phase 8b: conformer_small through the CLI's fast decode path on
+    phase 3a's song."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.cli import transcribe as cli
+    from yourmt3_tpu_torch.data.audio_io import slice_padded_array, write_wav
+    from yourmt3_tpu_torch.models import decoding
+    from yourmt3_tpu_torch.ops import decode_attention as da
+    from yourmt3_tpu_torch.ops.int4_cross_attention import int4_cross_attention
+    from yourmt3_tpu_torch.tokens.midi_io import midi2note
+
+    seconds = 6.0
+    wav = os.path.join(tmp, "conformer.wav")
+    write_wav(wav, sine_song(seconds), 16000)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = cli.main([wav, "-m", "conformer_small", "-t", "mt3_full_plus",
+                     "--decode-path", "fast", "--repair-beam", "2",
+                     "--seed", "0", "-o", tmp])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    launches = da.paged_decode_attention.launches
+    int4_launches = int4_cross_attention.launches
+    greedy, beam = decoding.greedy_decode.steps, decoding.beam_decode.steps
+    assert len(outs) == 1 and os.path.exists(outs[0]), outs
+    notes = midi2note(outs[0])
+    log(f"[{smi}] phase 8b: conformer_small fast decode, {seconds} s audio in "
+        f"{wall:.2f} s (CLI wall incl. init) = {seconds / wall:.3f} audio-s/s; "
+        f"decode steps greedy {greedy} + beam {beam}; paged kernel launches "
+        f"{launches}; notes {len(notes)}; peak device memory {peak:.1f} MiB")
+    assert launches == 8 * (greedy + beam) and launches > 0, (launches, greedy, beam)
+    assert int4_launches == 0, int4_launches
+
+    # the same model again: its encoder's device time on a batch of 8, then
+    # a profiled window of its decode steps
+    bundle = api.init_model("conformer_small", "mt3_full_plus", seed=0,
+                            **api.fast_decode_overrides(1, 1024))
+    segs, _ = slice_padded_array(sine_song(16.0), bundle.audio_cfg.input_frames)
+    with torch.no_grad():
+        feats = bundle.frontend(torch.from_numpy(
+            np.ascontiguousarray(segs[:8], np.float32)).to(bundle.device))
+        bundle.model.encoder(feats)  # warm-up
+        _, enc = device_profile(lambda: bundle.model.encoder(feats))
+        mem = bundle.model.encode(feats)
+    enc_ms = sum(d for _, d in enc.values()) / 1e3
+    log(f"[{smi}] phase 8b encoder (batch 8): device busy {enc_ms:.2f} ms")
+    decode_window("conformer_small", bundle.model, mem,
+                  bundle.task_manager.max_token_length, 496, "paged_decode")
+    return dict(launches=launches, wall=wall, audio_s=seconds, peak=peak,
+                enc_ms=enc_ms)
+
+
+def options_card_vs_cpu(smi):
+    """Phase 8c: each option of OPTIONS at full width in fp32, the card
+    against the CPU on one seeded batch, the same weights."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.data.audio_io import slice_padded_array
+
+    for preset, task, ov in OPTIONS:
+        t0 = time.perf_counter()
+        kw = dict(seed=0, compute_dtype="float32", **ov)
+        gpu = api.init_model(preset, task, **kw)
+        cpu = api.init_model(preset, task, device="cpu", **kw)
+        segs, _ = slice_padded_array(sine_song(16.0), gpu.audio_cfg.input_frames)
+        batch = np.ascontiguousarray(segs[:2], np.float32)
+        outs = []
+        with torch.no_grad():
+            for b in (gpu, cpu):
+                enc = b.model.encoder(b.frontend(torch.from_numpy(batch).to(b.device)))
+                outs.append((enc.cpu(), b.model.projection(enc).cpu()))
+        (enc_g, mem_g), (enc_c, mem_c) = outs
+        assert enc_g.dtype == torch.float32 and bool(torch.isfinite(enc_g).all())
+        assert mem_g.shape == mem_c.shape and mem_g.dtype == mem_c.dtype
+        err_enc = (enc_g - enc_c).abs().max().item()
+        a, c = mem_g.float().numpy(), mem_c.float().numpy()
+        if mem_g.dtype == torch.bfloat16:
+            mag = np.maximum(np.maximum(np.abs(a), np.abs(c)), 1.0)
+            ulps = (np.abs(a - c) / 2.0 ** (np.floor(np.log2(mag)) - 7)).max()
+            mem_msg = f"memory (bf16) max {ulps:.2f} ulps (tol {MEMORY_ULPS})"
+            ok = ulps <= MEMORY_ULPS
+        else:
+            err_mem = np.abs(a - c).max()
+            mem_msg = f"memory (fp32) max|diff| {err_mem:.2e} (tol {TOL_MODEL_FP32})"
+            ok = err_mem < TOL_MODEL_FP32
+        log(f"[{smi}] phase 8c: {preset} {ov} fp32, 2 segments, card vs CPU: "
+            f"encoder {tuple(enc_g.shape)} max|diff| {err_enc:.2e} (tol "
+            f"{TOL_MODEL_FP32}); {mem_msg}; {time.perf_counter() - t0:.1f} s")
+        assert err_enc < TOL_MODEL_FP32, (preset, ov, err_enc)
+        assert ok, (preset, ov, mem_msg)
+        del gpu, cpu
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--kernels-only", action="store_true",
@@ -1574,6 +1808,11 @@ def main(argv=None) -> int:
         launches4 = flagship_path(tmp)
         trained = train_path(tmp)
         eval_path(tmp, dev, smi)
+        t8 = time.perf_counter()
+        moe_flagship_path(tmp, smi)
+        conformer_path(tmp, smi)
+    options_card_vs_cpu(smi)
+    log(f"phase 8 took {time.perf_counter() - t8:.1f} s")
     kernel_in_model()
     flagship_in_model()
     where_time_goes("t5_small", api.init_model(

@@ -352,3 +352,36 @@ def test_launch_probe_adds_one_exactly(dev):
         lp.launch_probe_plain(lp.launch_probe_plain(lp.launch_probe_plain(x))))))
     with pytest.raises(ValueError, match="shape"):
         lp.launch_probe(torch.zeros(4, 128, device=dev))
+
+
+# the MoE flagship's and the conformer's encoders at a small width (the
+# sizes of tests/test_torch_moe.py and tests/test_torch_conformer.py)
+SMALL_ENCODERS = {
+    "moe_flagship": ("perceiver_tf_mc13_moe", "mc13_full_plus_256",
+                     dict(d_model=64, d_kv=16, num_heads=4, d_ff=128,
+                          num_decoder_layers=2, ptf_d_latent=64,
+                          ptf_num_blocks=1, conv_channels=8)),
+    "conformer": ("conformer_small", "mt3_full_plus_256",
+                  dict(d_model=64, d_kv=16, num_heads=4, d_ff=128,
+                       num_encoder_layers=2, num_decoder_layers=2)),
+}
+
+
+@pytest.mark.parametrize("name", list(SMALL_ENCODERS))
+def test_encoder_on_the_card_matches_the_cpu(dev, name):
+    """The same seeded fp32 model on the card and on the CPU (TF32 off):
+    the encoder output within 1e-3 (summation order only)."""
+    from yourmt3_tpu_torch import api
+    preset, task, ov = SMALL_ENCODERS[name]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(task=task, seed=0, compute_dtype="float32", **ov)
+    gpu = api.init_model(preset, device=dev, **kw)
+    cpu = api.init_model(preset, device="cpu", **kw)
+    audio = _song(2, gpu.audio_cfg.input_frames, 0)
+    with torch.no_grad():
+        got = gpu.model.encoder(gpu.frontend(audio.to(dev))).cpu()
+        want = cpu.model.encoder(cpu.frontend(audio))
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    err = (got - want).abs().max().item()
+    assert err < 1e-3, err

@@ -91,22 +91,13 @@ def test_cli_rejects_unported_inputs(tmp_path, flag):
 
 def test_unported_options_raise():
     """What the port does not carry yet raises, naming its ROADMAP item:
-    the MoE flagship, the conformer encoder, the non-identity projections
-    of the T5 encoder, the rope/alibi Perceiver positions, the
-    D-Adaptation optimizer, data-parallel training and the evaluator's
-    chunk-parallel mesh."""
+    the D-Adaptation optimizer, data-parallel training and the evaluator's
+    chunk-parallel mesh. (Every encoder and option of ModelConfig builds:
+    tests/test_torch_encoder_options.py.)"""
     from yourmt3_tpu_torch import api
     from yourmt3_tpu_torch.eval.evaluator import evaluate_file_dataset
     from yourmt3_tpu_torch.train.optim import make_optimizer
     from yourmt3_tpu_torch.train.trainer import train
-    cases = [("perceiver_tf_mc13_moe", "mc13_full_plus_256", {}),
-             ("conformer_small", "mt3_full_plus_256", {}),
-             ("t5_tiny", "mt3_full_plus_256", {"proj_type": "mlp"}),
-             ("perceiver_tf_mc13", "mc13_full_plus_256",
-              {"ptf_pos_enc": "rope"})]
-    for preset, task, ov in cases:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.init_model(preset, task, device="cpu", **ov)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_optimizer("dadapt_adam")
     bundle = api.init_model("t5_tiny", "mt3_full_plus_256", device="cpu")

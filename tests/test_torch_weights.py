@@ -21,9 +21,30 @@ from yourmt3_tpu_torch.models.ymt3 import YMT3
 from yourmt3_tpu_torch.weights import state_dict_from_jax
 
 
-def random_param_tree(preset: str, seed: int = 0):
+# the encoder families and options at a tiny width: (preset, overrides)
+TINY_T5 = dict(d_model=64, d_kv=16, num_heads=4, d_ff=128,
+               num_encoder_layers=2, num_decoder_layers=2)
+TINY_PTF = dict(d_model=64, d_kv=16, num_heads=4, d_ff=128,
+                num_decoder_layers=2, ptf_d_latent=64, ptf_num_blocks=1,
+                conv_channels=8)
+MODELS = {
+    "t5_tiny": ("t5_tiny", {}),
+    "t5_small": ("t5_small", {}),
+    "perceiver_tf_mc13": ("perceiver_tf_mc13", {}),
+    "moe_flagship": ("perceiver_tf_mc13_moe", TINY_PTF),
+    "conformer": ("conformer_small", TINY_T5),
+    "rope": ("perceiver_tf_mc13", dict(TINY_PTF, ptf_pos_enc="rope")),
+    "alibi": ("perceiver_tf_mc13", dict(TINY_PTF, ptf_pos_enc="alibi")),
+    "mlp": ("conformer_small", dict(TINY_T5, proj_type="mlp")),
+    "depthwise-conv": ("conformer_small",
+                       dict(TINY_T5, proj_type="depthwise-conv")),
+    "group-conv": ("perceiver_tf_mc13", dict(TINY_PTF, proj_type="group-conv")),
+}
+
+
+def random_param_tree(preset: str, seed: int = 0, **overrides):
     """The preset's JAX param tree (shapes from eval_shape), numpy-filled."""
-    cfg = jax_model_config(preset)
+    cfg = jax_model_config(preset).replace(**overrides)
     feats = jnp.zeros((1, 256, 512), jnp.float32)
     ids = jnp.zeros((1, cfg.num_channels, 8), jnp.int32)
     shapes = jax.eval_shape(JaxYMT3(cfg).init, jax.random.PRNGKey(0), feats, ids)
@@ -32,25 +53,27 @@ def random_param_tree(preset: str, seed: int = 0):
         lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
 
 
-@pytest.mark.parametrize("preset", ["t5_tiny", "t5_small", "perceiver_tf_mc13"])
-def test_bridge_matches_reference_names_and_loads(preset):
-    params = random_param_tree(preset)
+@pytest.mark.parametrize("name", list(MODELS))
+def test_bridge_matches_reference_names_and_loads(name):
+    preset, overrides = MODELS[name]
+    params = random_param_tree(preset, **overrides)
     want = reference_style_state_dict(params, prefix="")
     got = state_dict_from_jax(params)
     assert sorted(got) == sorted(want)
     for k, v in want.items():
         assert np.array_equal(got[k].numpy(), v), k
 
-    model = YMT3(get_model_config(preset))
+    model = YMT3(get_model_config(preset).replace(**overrides))
     result = model.load_state_dict(got, strict=True)
     assert not result.missing_keys and not result.unexpected_keys
     # the port holds exactly these keys: nothing of its own beside them
     assert sorted(model.state_dict()) == sorted(want)
 
 
-@pytest.mark.parametrize("preset", ["t5_tiny", "t5_small", "perceiver_tf_mc13"])
-def test_bridge_maps_back_through_the_jax_importer(preset):
-    params = random_param_tree(preset, seed=1)
+@pytest.mark.parametrize("name", list(MODELS))
+def test_bridge_maps_back_through_the_jax_importer(name):
+    preset, overrides = MODELS[name]
+    params = random_param_tree(preset, seed=1, **overrides)
     port_sd = {k: v.numpy() for k, v in state_dict_from_jax(params).items()}
     back = import_state_dict(port_sd, params, verbose=False,
                              require_complete=True)
@@ -58,6 +81,31 @@ def test_bridge_maps_back_through_the_jax_importer(preset):
     assert sorted(got) == sorted(want)
     for k in want:
         assert np.array_equal(got[k], want[k]), k
+
+
+def test_t5_moe_bridge_round_trips():
+    """ff_act="moe" has no reference naming: the bridge names each T5
+    layer's router and stacked experts under its DenseReluDense, the
+    result loads with strict=True, and the port's state_dict holds the
+    same arrays (router transposed, experts as they are)."""
+    overrides = dict(TINY_T5, ff_act="moe")
+    params = random_param_tree("t5_tiny", seed=3, **overrides)
+    with pytest.raises(ValueError, match="no inverse import rule"):
+        reference_style_state_dict(params)
+    got = state_dict_from_jax(params)
+    model = YMT3(get_model_config("t5_tiny").replace(**overrides))
+    model.load_state_dict(got, strict=True)
+    sd = model.state_dict()
+    assert sorted(sd) == sorted(got)
+    flat = flatten_params(params)
+    for side, lyr, i in (("encoder", "layer_1", 1), ("decoder", "layer_0", 2)):
+        ff = f"{side}.block.{1 if side == 'encoder' else 0}.layer.{i}.DenseReluDense"
+        assert np.array_equal(sd[f"{ff}.router.weight"].numpy(),
+                              flat[f"{side}/{lyr}/ff/router/kernel"].T)
+        for w in ("wi", "wo"):
+            assert np.array_equal(sd[f"{ff}.experts_{w}"].numpy(),
+                                  flat[f"{side}/{lyr}/ff/{w}"])
+    assert sd["encoder.block.0.layer.1.DenseReluDense.experts_wi"].shape == (8, 64, 128)
 
 
 def test_bridge_accepts_flat_paths_and_rejects_unknown():
@@ -90,3 +138,19 @@ def test_init_distributions_mirror_the_reference():
     head = sd["lm_head.weight"]
     assert head.abs().max().item() <= 2 * d ** -0.5 / 0.87962566103423978 + 1e-6
     assert abs(head.std().item() - d ** -0.5) < 0.05 * d ** -0.5
+
+    # the MoE flagship's stacked experts (its encoder at full width; one
+    # decoder layer): flax's fan-in counts the expert axis (E·d for wi,
+    # E·ff for wo); the router is lecun truncated normal
+    moe = YMT3(get_model_config("perceiver_tf_mc13_moe").replace(num_decoder_layers=1))
+    moe.reset_parameters(torch.Generator().manual_seed(0))
+    sd = moe.state_dict()
+    E, dl = 8, 128
+    wi = sd["encoder.temporal_blocks.0.mlp.experts_wi"]
+    wo = sd["encoder.spectral_blocks.2.mlp.experts_wo"]
+    assert wi.shape == (E, dl, 4 * dl) and wo.shape == (E, 4 * dl, dl)
+    assert abs(wi.std().item() - (E * dl) ** -0.5) < 0.02 * (E * dl) ** -0.5
+    assert abs(wo.std().item() - (E * 4 * dl) ** -0.5) < 0.02 * (E * 4 * dl) ** -0.5
+    router = sd["encoder.temporal_blocks.1.mlp.router.weight"]
+    assert router.shape == (E, dl)
+    assert router.abs().max().item() <= 2 * dl ** -0.5 / 0.87962566103423978 + 1e-6

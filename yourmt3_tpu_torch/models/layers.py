@@ -216,11 +216,12 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, num_heads: int, d_kv: int, d_model: int,
                  dtype: torch.dtype, num_kv_heads: Optional[int] = None,
                  relative_bias: Optional[RelativePositionBias] = None,
-                 device=None):
+                 device=None, use_rope: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.kv_heads = num_kv_heads or num_heads
         self.d_kv = d_kv
+        self.use_rope = use_rope  # rotary q/k over the sequence axis
         self.q = QuantDense(d_model, num_heads * d_kv, dtype, device)
         self.k = QuantDense(d_model, self.kv_heads * d_kv, dtype, device)
         self.v = QuantDense(d_model, self.kv_heads * d_kv, dtype, device)
@@ -268,6 +269,8 @@ class MultiHeadAttention(nn.Module):
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         q = self.split(self.q(x_q), self.num_heads)
         k, v = self.project_kv(x_kv)
+        if self.use_rope:
+            q, k = rope_rotate(q), rope_rotate(k)
         if self.kv_heads != self.num_heads:
             t = q.shape[2]
             out = dot_product_attention(self.group_queries(q), k, v,
@@ -276,6 +279,42 @@ class MultiHeadAttention(nn.Module):
         else:
             out = dot_product_attention(q, k, v, bias)
         return self.o(self.merge(out))
+
+
+def rope_rotate(x: torch.Tensor, base: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding over the sequence axis: (B, H, T, dk),
+    dk even → same shape. Head-dim element i pairs with i + dk/2, and the
+    pair turns by angle t / base^(i / (dk/2)); angles and the rotation in
+    fp32, the result in x's dtype."""
+    T, dk = x.shape[-2], x.shape[-1]
+    half = dk // 2
+    f32 = dict(dtype=torch.float32, device=x.device)
+    # true fp32 divisions, as eager JAX computes them (see
+    # relative_position_bucket)
+    expo = torch.arange(half, **f32) / torch.full((), half, **f32)
+    freqs = 1.0 / torch.pow(torch.full((), base, **f32), expo)
+    ang = torch.arange(T, **f32)[:, None] * freqs[None]  # (T, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def alibi_slopes(num_heads: int) -> np.ndarray:
+    """ALiBi per-head slopes: the geometric sequence 2^(-8h/H), h = 1..H."""
+    start = 2.0 ** (-8.0 / num_heads)
+    return start ** np.arange(1, num_heads + 1)
+
+
+def alibi_bias(num_heads: int, q_len: int, k_len: int,
+               device=None) -> torch.Tensor:
+    """(1, H, q_len, k_len) fp32 additive bias -slope_h·|i - j| (the
+    bidirectional form: the encoder attends both ways)."""
+    slopes = torch.tensor(alibi_slopes(num_heads).astype(np.float32),
+                          device=device)
+    dist = torch.abs(torch.arange(k_len, device=device)[None, :]
+                     - torch.arange(q_len, device=device)[:, None])
+    return (-slopes[:, None, None] * dist[None].to(torch.float32))[None]
 
 
 ACTIVATIONS = {
@@ -319,10 +358,6 @@ class FeedForward(nn.Module):
     def __init__(self, d_model: int, d_ff: int, act: str,
                  dtype: torch.dtype, device=None, dropout_rate: float = 0.0):
         super().__init__()
-        if act == "moe":
-            raise NotImplementedError(
-                "ff_act='moe' is not ported yet (ROADMAP Queue 1, other "
-                "encoders and options)")
         self.gated = act.startswith("gated-")
         self.act = ACTIVATIONS[act.split("-")[1] if self.gated else act]
         if self.gated:
@@ -344,6 +379,77 @@ class FeedForward(nn.Module):
         else:
             y = self.act(self.wi(x))
         return self.wo(self.dropout(y))
+
+
+class MoEFeedForward(nn.Module):
+    """Token-choice top-k mixture-of-experts FF, computed densely as the
+    reference does: every expert runs on every token in fp32 and a sparse
+    gate weighs the results.
+
+    The router is a bias-free fp32 linear layer on x in fp32; softmax over
+    the experts, top-k, the top-k probabilities scattered back over the
+    experts and renormalised (sum + 1e-9). The experts are stacked fp32
+    tensors in the reference's orientation, `experts_wi` (E, d, ff) and
+    `experts_wo` (E, ff, d), with `act` between them; the gated sum is
+    cast to the compute dtype. No dropout. The weights are plain
+    parameters, not `QuantDense`, so decoder weight quantization leaves
+    them in fp32, as in the reference."""
+
+    def __init__(self, num_experts: int, d_model: int, d_ff: int,
+                 dtype: torch.dtype, top_k: int = 2, act: str = "gelu",
+                 device=None):
+        super().__init__()
+        self.router = nn.Linear(d_model, num_experts, bias=False,
+                                device=device)
+        self.experts_wi = nn.Parameter(
+            torch.empty(num_experts, d_model, d_ff, device=device))
+        self.experts_wo = nn.Parameter(
+            torch.empty(num_experts, d_ff, d_model, device=device))
+        self.top_k = top_k
+        self.act = ACTIVATIONS[act]
+        self.dtype = dtype
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        # flax: the router's lecun normal; for the stacked experts
+        # variance_scaling(1, "fan_in", "normal") counts the expert axis
+        # into the fan-in (E·d for wi, E·ff for wo)
+        lecun_truncated_normal_(self.router.weight, gen)
+        for w in (self.experts_wi, self.experts_wo):
+            normal_(w, math.sqrt(1.0 / (w.shape[0] * w.shape[1])), gen)
+
+    def gate(self, x32: torch.Tensor):
+        """fp32 (..., d) → ((..., E) renormalised top-k gate, (..., k)
+        chosen experts)."""
+        probs = torch.softmax(self.router(x32), dim=-1)
+        top_p, top_i = torch.topk(probs, self.top_k, dim=-1)
+        gate = torch.zeros_like(probs).scatter(-1, top_i, top_p)
+        return gate / (gate.sum(dim=-1, keepdim=True) + 1e-9), top_i
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.to(torch.float32)
+        gate, _ = self.gate(x32)
+        h = self.act(torch.einsum("...d,edf->...ef", x32, self.experts_wi))
+        y = torch.einsum("...ef,efd->...ed", h, self.experts_wo)
+        return torch.einsum("...ed,...e->...d", y, gate).to(self.dtype)
+
+
+class DepthwiseConv1d(nn.Module):
+    """Depthwise convolution along the time axis of (B, T, C): one k-tap
+    filter per channel, no bias, flax "SAME" padding, computed in `dtype`.
+    The weight is (C, 1, k), torch's grouped layout of flax's (k, 1, C)."""
+
+    def __init__(self, channels: int, kernel_size: int, dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(channels, 1, kernel_size, device=device))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.weight.shape[-1]
+        h = F.pad(x.to(self.dtype).transpose(1, 2), ((k - 1) // 2, k // 2))
+        return F.conv1d(h, self.weight.to(self.dtype),
+                        groups=self.weight.shape[0]).transpose(1, 2)
 
 
 def sinusoidal_positions(length: int, dim: int) -> np.ndarray:

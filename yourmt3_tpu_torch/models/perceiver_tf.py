@@ -4,15 +4,18 @@ alternating temporal and spectral self-attention.
 (B, T, F) features → conv pre-encoder (B, T, F', C) → spectral_proj to
 d_latent → per frame, K learned latents cross-attend the F' spectral
 tokens (query residual kept) → absolute sinusoids and the trainable
-`pos_emb` added along time → `ptf_num_blocks` × [temporal SA over T for
-each latent, spectral SA over K for each frame], each folding the other
-axis into the batch → final RMSNorm → (B, T, K, D).
+`pos_emb` (ptf_pos_enc="trainable") added along time →
+`ptf_num_blocks` × [temporal SA over T for each latent, spectral SA over
+K for each frame], each folding the other axis into the batch → final
+RMSNorm → (B, T, K, D).
 
 Attention has d_latent // 32 heads and, as everywhere in T5, no 1/√d
-scale; the FFs are plain tanh-gelu (`wi`, `wo`). Module names follow the
-reference checkpoint naming, so the JAX importer's inverse rules give the
-state_dict keys (weights.py). The MoE FF and the rope/alibi positions are
-not ported (ROADMAP Queue 1 item 16).
+scale. With ptf_pos_enc "rope" or "alibi" there is no `pos_emb`: the
+temporal blocks rotate q and k, or add the ALiBi distance bias, instead.
+The blocks' FF is plain tanh-gelu (`wi`, `wo`), or the top-k
+mixture-of-experts FF when ptf_num_moe_experts > 0; the cross-attention's
+FF is always dense. Module names follow the reference checkpoint naming,
+so the JAX importer's inverse rules give the state_dict keys (weights.py).
 """
 
 from __future__ import annotations
@@ -22,11 +25,11 @@ from torch import nn
 
 from ..config.model import ModelConfig
 from .conv_block import ConvPreEncoder
-from .layers import (DTYPES, Dropout, FeedForward, MultiHeadAttention, QuantDense,
-                     RMSNorm, sinusoidal_positions)
+from .layers import (DTYPES, Dropout, FeedForward, MoEFeedForward,
+                     MultiHeadAttention, QuantDense, RMSNorm, alibi_bias,
+                     sinusoidal_positions)
 
-UNPORTED = ("{} is not ported yet (ROADMAP Queue 1 item 16: other encoders "
-            "and options)")
+POS_MODES = ("trainable", "rope", "alibi")
 
 
 def _heads(d: int) -> int:
@@ -34,22 +37,36 @@ def _heads(d: int) -> int:
 
 
 class PTFBlockAttention(nn.Module):
-    """Pre-norm self-attention + FF over the last two axes (L, D)."""
+    """Pre-norm self-attention + FF over the last two axes (L, D).
 
-    def __init__(self, cfg: ModelConfig):
+    pos_mode: "none", "rope" (rotary q/k) or "alibi" (additive distance
+    bias); the encoder sets it on the temporal blocks only."""
+
+    def __init__(self, cfg: ModelConfig, pos_mode: str = "none"):
         super().__init__()
         dt, d = DTYPES[cfg.compute_dtype], cfg.ptf_d_latent
         h = _heads(d)
+        self.pos_mode = pos_mode
         self.norm1 = RMSNorm(d, dt)
-        self.attention = MultiHeadAttention(h, d // h, d, dt)
+        self.attention = MultiHeadAttention(h, d // h, d, dt,
+                                            use_rope=pos_mode == "rope")
         self.norm2 = RMSNorm(d, dt)
-        self.mlp = FeedForward(d, 4 * d, cfg.ptf_ff_act, dt,
-                               dropout_rate=cfg.dropout_rate)
+        if cfg.ptf_num_moe_experts > 0:
+            self.mlp = MoEFeedForward(cfg.ptf_num_moe_experts, d, 4 * d, dt,
+                                      top_k=cfg.ptf_moe_topk,
+                                      act=cfg.ptf_ff_act)
+        else:
+            self.mlp = FeedForward(d, 4 * d, cfg.ptf_ff_act, dt,
+                                   dropout_rate=cfg.dropout_rate)
         self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.norm1(x)
-        x = x + self.dropout(self.attention(h, h, None))
+        bias = None
+        if self.pos_mode == "alibi":
+            L = x.shape[1]
+            bias = alibi_bias(self.attention.num_heads, L, L, x.device)
+        x = x + self.dropout(self.attention(h, h, bias))
         return x + self.dropout(self.mlp(self.norm2(x)))
 
 
@@ -77,12 +94,9 @@ class SpectralCrossAttention(nn.Module):
 class PerceiverTFEncoder(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.ptf_num_moe_experts > 0:
-            raise NotImplementedError(UNPORTED.format(
-                f"ptf_num_moe_experts={cfg.ptf_num_moe_experts} (MoE FF)"))
-        if cfg.ptf_pos_enc != "trainable":
-            raise NotImplementedError(UNPORTED.format(
-                f"ptf_pos_enc={cfg.ptf_pos_enc!r}"))
+        if cfg.ptf_pos_enc not in POS_MODES:
+            raise ValueError(f"ptf_pos_enc must be one of {POS_MODES}, got "
+                             f"{cfg.ptf_pos_enc!r}")
         self.cfg = cfg
         dt, d = DTYPES[cfg.compute_dtype], cfg.ptf_d_latent
         if cfg.use_conv_pre_encoder:
@@ -91,11 +105,13 @@ class PerceiverTFEncoder(nn.Module):
         self.spectral_proj = QuantDense(tok_dim, d, dt)
         self.latent_array = nn.Parameter(torch.empty(cfg.ptf_num_latents, d))
         self.sca = SpectralCrossAttention(cfg)
+        pos_mode = "none" if cfg.ptf_pos_enc == "trainable" else cfg.ptf_pos_enc
         self.temporal_blocks = nn.ModuleList(
-            [PTFBlockAttention(cfg) for _ in range(cfg.ptf_num_blocks)])
+            [PTFBlockAttention(cfg, pos_mode) for _ in range(cfg.ptf_num_blocks)])
         self.spectral_blocks = nn.ModuleList(
             [PTFBlockAttention(cfg) for _ in range(cfg.ptf_num_blocks)])
-        self.pos_emb = nn.Parameter(torch.empty(1024, d))
+        if cfg.ptf_pos_enc == "trainable":
+            self.pos_emb = nn.Parameter(torch.empty(1024, d))
         self.final_layer_norm = RMSNorm(d, dt)
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
@@ -115,7 +131,8 @@ class PerceiverTFEncoder(nn.Module):
         if c.encoder_abs_pos == "sinusoidal":
             pos = torch.from_numpy(sinusoidal_positions(T, D))
             z = z + pos.to(device=z.device, dtype=dt)[None, :, None, :]
-        z = z + self.pos_emb[:T].to(dt)[None, :, None, :]
+        if c.ptf_pos_enc == "trainable":
+            z = z + self.pos_emb[:T].to(dt)[None, :, None, :]
 
         for tb, sb in zip(self.temporal_blocks, self.spectral_blocks):
             zt = tb(z.transpose(1, 2).reshape(B * K, T, D))

@@ -31,8 +31,8 @@ from ..ops.decode_attention import (dense_to_paged, paged_cache_update,
 from ..ops.int4_cross_attention import int4_cross_attention
 from ..ops.kv_quant import (int4_decode_attention, int8_decode_attention,
                             quantize_kv, quantize_kv4, quantize_kv4_crosspack)
-from .layers import (DTYPES, NEG_INF, Dropout, FeedForward, MultiHeadAttention,
-                     QuantDense, RMSNorm, RelativePositionBias,
+from .layers import (DTYPES, NEG_INF, Dropout, FeedForward, MoEFeedForward,
+                     MultiHeadAttention, QuantDense, RMSNorm, RelativePositionBias,
                      dot_product_attention, relative_position_bucket,
                      sinusoidal_positions)
 
@@ -45,6 +45,16 @@ INT8_SELF = ("int8", "int8c4", "int8c4p")
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.compute_dtype]
+
+
+def make_ff(cfg: ModelConfig, dtype: torch.dtype) -> nn.Module:
+    """The layers' FF: ff_act="moe" is the reference's mixture of 8
+    experts (d_ff each, top-2, tanh-gelu, fp32 weights that decoder
+    weight quantization leaves alone); any other ff_act the dense FF."""
+    if cfg.ff_act == "moe":
+        return MoEFeedForward(8, cfg.d_model, cfg.d_ff, dtype)
+    return FeedForward(cfg.d_model, cfg.d_ff, cfg.ff_act, dtype,
+                       dropout_rate=cfg.dropout_rate)
 
 
 class T5LayerSelfAttention(nn.Module):
@@ -71,8 +81,7 @@ class T5LayerFF(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         dt = compute_dtype(cfg)
-        self.DenseReluDense = FeedForward(cfg.d_model, cfg.d_ff, cfg.ff_act, dt,
-                                          dropout_rate=cfg.dropout_rate)
+        self.DenseReluDense = make_ff(cfg, dt)
         self.layer_norm = RMSNorm(cfg.d_model, dt)
 
 

@@ -20,9 +20,11 @@ from ..config.model import ModelConfig
 from ..ops.decode_attention import empty_paged_cache, empty_paged_scales
 from ..ops.weight_quant import quantize_decoder_weights
 from ..tokens.codec import PAD_ID
+from .conformer import ConformerEncoder
 from .conv_block import Conv2dSame
-from .layers import (Dropout, FeedForward, MultiHeadAttention, QuantDense,
-                     RelativePositionBias, lecun_truncated_normal_, normal_)
+from .layers import (DepthwiseConv1d, Dropout, FeedForward, MoEFeedForward,
+                     MultiHeadAttention, QuantDense, RelativePositionBias,
+                     lecun_truncated_normal_, normal_)
 from .perceiver_tf import PerceiverTFEncoder
 from .projection import EncoderProjection
 from .t5 import INT8_SELF, MultiChannelT5Decoder, T5Decoder, T5Encoder, compute_dtype
@@ -35,10 +37,10 @@ class YMT3(nn.Module):
             encoder = T5Encoder(cfg, in_features)
         elif cfg.encoder_type == "perceiver-tf":
             encoder = PerceiverTFEncoder(cfg)
+        elif cfg.encoder_type == "conformer":
+            encoder = ConformerEncoder(cfg, in_features)
         else:
-            raise NotImplementedError(
-                f"encoder_type={cfg.encoder_type!r} is not ported yet "
-                "(ROADMAP Queue 1 item 16)")
+            raise ValueError(f"unknown encoder_type {cfg.encoder_type!r}")
         self.cfg = cfg
         self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
         self.encoder = encoder
@@ -52,15 +54,16 @@ class YMT3(nn.Module):
     def reset_parameters(self, gen: torch.Generator) -> None:
         """Random init with the reference initialisers' distributions:
         lecun normal for dense and conv kernels, zero conv biases,
-        N(0, 0.02) for bias tables, latents and position tables."""
+        N(0, 0.02) for bias tables, latents and position tables, fan-in
+        normal for the attention, FF and expert weights."""
         for mod in self.modules():
-            if isinstance(mod, QuantDense):
+            if isinstance(mod, (QuantDense, DepthwiseConv1d)):
                 lecun_truncated_normal_(mod.weight, gen)
             elif isinstance(mod, Conv2dSame):
                 lecun_truncated_normal_(mod.weight, gen)
                 nn.init.zeros_(mod.bias)
         for mod in self.modules():
-            if isinstance(mod, (MultiHeadAttention, FeedForward)):
+            if isinstance(mod, (MultiHeadAttention, FeedForward, MoEFeedForward)):
                 mod.reset_parameters(gen)
             elif isinstance(mod, RelativePositionBias):
                 normal_(mod.weight, 0.02, gen)
