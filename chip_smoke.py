@@ -15,7 +15,7 @@ Phases:
      CUDA-graph replays for the decode kernels) beside its plain version,
      the one PyTorch call that computes the same function (library_ms)
      and its bound. The paged kernel is timed at pos 127, 511 and 1023
-     with its split count; the fused log-mel kernel is held at B in
+     with its split count, at S = 8 and S = 48; the fused log-mel kernel is held at B in
      {1, 8, 16}; the
      launch probe's own path is its launch-overhead measurement (eager
      through its operator in turns with torch's x + 1, then each inside
@@ -63,7 +63,9 @@ Phases:
         plain decode's top two logits lie within MARGIN_ULPS bf16 ulps;
      f. batch invariance: the paged kernel (48 streams, int8 pages, pos
         511 and 1023) and the int4 kernel (104 streams) on the kept rows of
-        a compacted batch (8 and 16 streams) against the full batch.
+        a compacted batch (8 and 16 streams) must equal the full batch's
+        bit for bit (the paged kernel's split depends on the cache length
+        alone).
   8. the MoE flagship and the conformer, slice 5, each path with every
      launch count set to 0 just before it and read just after:
      a. perceiver_tf_mc13_moe (8 experts, top-2, in every Perceiver-TF
@@ -87,6 +89,25 @@ Phases:
         The encoder output must agree within TOL_MODEL_FP32 and the
         decoder memory (bf16 after a projection layer) within
         MEMORY_ULPS bf16 ulps.
+  9. data-parallel training and chunk-parallel evaluation, slice 6, each
+     path with every launch count set to 0 just before it and read just
+     after:
+     c. in an NCCL group of world 1: cli.test scores phase 7's split
+        chunk-parallel (8 segments per rank); the int4 kernel's launches
+        must equal 8 x the decode steps run and the metrics JSON must be
+        phase 7's; then transcribe_song_chunk_parallel decodes phase 3a's
+        song on t5_small's fast path (paged kernel, 8 x the steps) and
+        must give the one-device path's notes and errors;
+     a. in the same group: the full-width flagship through
+        trainer.train(n_data_shards=1) under DDP, batch 16, fused log-mel
+        frontend, 5 steps of phase 6's run (the kernel launches once per
+        step), against the same steps without a group: the losses must
+        agree within TOL_DDP1_LOSS_REL; steps/s and peak memory beside
+        phase 6's;
+     b. two gloo ranks on the one card (spawned processes) train t5_small
+        in fp32 on halves of global batches of 8 for 2 steps; the losses
+        and weights must equal one process's within TOL_DDP2_LOSS_REL and
+        TOL_DDP2_WEIGHT_REL.
 
 Any failure raises: nothing is caught and nothing falls back. The last
 line is {"ok": true, "device": {...}}; the line before it lists each
@@ -280,63 +301,65 @@ def bound(S, pos):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_kernel(dev):
-    """Times at the main path's shape: S = 8, int8 pages, table bias, a
-    decoder's 8 layer caches cycled (53 MB, about the size of L2), the
-    kernel with the split count it picks."""
+def time_kernel(dev, batches=(8, 48)):
+    """Times at the main path's shape: int8 pages, table bias, a decoder's
+    8 layer caches cycled (53 MB at S = 8, about the size of L2), at S = 8
+    (t5_small's batch) and S = 48 (phase 7e's), the kernel with the split
+    count it picks. → {(S, pos): row}."""
     import torch
     import torch.nn.functional as F
     from yourmt3_tpu_torch.models.layers import relative_position_bucket
     from yourmt3_tpu_torch.ops import decode_attention as da
     from yourmt3_tpu_torch.ops.kv_quant import dequantize_kv
     gen = torch.Generator().manual_seed(1)
-    S, layers = 8, 8
+    layers = 8
     table = (torch.randn(BUCKETS, H, generator=gen) * 0.5).to(dev)
     dist = da.distance_buckets(BUCKETS, MAXD).to(dev)
-    q = torch.randn(S, H, DK, generator=gen).to(dev).to(torch.bfloat16)
-    caches = [make_pages(S, True, gen, dev) for _ in range(layers)]
-
-    def dense(c, n):  # (NB,S,H,block,dk) int8 + (S,NB,H,block) → (S,H,L,dk)
-        vals = c[n].permute(1, 2, 0, 3, 4).reshape(S, H, L, DK)
-        sc = c[n + "s"].permute(0, 2, 1, 3).reshape(S, H, L)
-        return dequantize_kv(vals, sc).to(torch.bfloat16)
-
-    dense_kv = [(dense(c, "k"), dense(c, "v")) for c in caches]
     rows = {}
-    for pos in (127, 511, 1023):
-        kw = dict(rel_table=table, dist_buckets=dist)
-        j = torch.arange(L, device=dev, dtype=torch.int32)
-        bias = table[relative_position_bucket(j - pos, False, BUCKETS, MAXD).long()].T
-        mask = torch.where(j <= pos, bias, torch.full_like(bias, float("-inf")))
-        mask = mask[None, :, None, :].to(torch.bfloat16)  # (1, H, 1, L)
-        q4 = q[:, :, None, :]
+    for S in batches:
+        q = torch.randn(S, H, DK, generator=gen).to(dev).to(torch.bfloat16)
+        caches = [make_pages(S, True, gen, dev) for _ in range(layers)]
 
-        def kernel():
-            for c in caches:
-                da.paged_decode_attention(q, c["k"], c["v"], pos, k_scale=c["ks"],
-                                          v_scale=c["vs"], **kw)
+        def dense(c, n):  # (NB,S,H,block,dk) int8 + (S,NB,H,block) → (S,H,L,dk)
+            vals = c[n].permute(1, 2, 0, 3, 4).reshape(S, H, L, DK)
+            sc = c[n + "s"].permute(0, 2, 1, 3).reshape(S, H, L)
+            return dequantize_kv(vals, sc).to(torch.bfloat16)
 
-        def plain():
-            for c in caches:
-                da.paged_decode_attention_plain(q, c["k"], c["v"], pos,
-                                                rel_table=table, k_scale=c["ks"],
-                                                v_scale=c["vs"])
+        dense_kv = [(dense(c, "k"), dense(c, "v")) for c in caches]
+        for pos in (127, 511, 1023):
+            kw = dict(rel_table=table, dist_buckets=dist)
+            j = torch.arange(L, device=dev, dtype=torch.int32)
+            bias = table[relative_position_bucket(j - pos, False, BUCKETS, MAXD).long()].T
+            mask = torch.where(j <= pos, bias, torch.full_like(bias, float("-inf")))
+            mask = mask[None, :, None, :].to(torch.bfloat16)  # (1, H, 1, L)
+            q4 = q[:, :, None, :]
 
-        def library():
-            for kd, vd in dense_kv:
-                F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
-                                               scale=1.0)
+            def kernel():
+                for c in caches:
+                    da.paged_decode_attention(q, c["k"], c["v"], pos, k_scale=c["ks"],
+                                              v_scale=c["vs"], **kw)
 
-        b_ms, b_by = bound(S, pos)
-        splits, split_rows = da.decode_splits(S, H, pos)
-        rows[pos] = dict(ms=graph_ms(kernel, layers), plain_ms=graph_ms(plain, layers),
-                         library_ms=graph_ms(library, layers),
-                         bound_ms=b_ms, bound_by=b_by)
-        r = rows[pos]
-        log(f"time S={S} int8+table pos={pos} ({splits} ranges of {split_rows} "
-            f"rows, {S * H * splits} CTAs): kernel {r['ms'] * 1e3:.2f} us, plain "
-            f"{r['plain_ms'] * 1e3:.2f} us, library (SDPA, dense bf16) "
-            f"{r['library_ms'] * 1e3:.2f} us, bound ({b_by}) {b_ms * 1e3:.2f} us")
+            def plain():
+                for c in caches:
+                    da.paged_decode_attention_plain(q, c["k"], c["v"], pos,
+                                                    rel_table=table, k_scale=c["ks"],
+                                                    v_scale=c["vs"])
+
+            def library():
+                for kd, vd in dense_kv:
+                    F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
+                                                   scale=1.0)
+
+            b_ms, b_by = bound(S, pos)
+            splits, split_rows = da.decode_splits(pos)
+            r = rows[S, pos] = dict(
+                ms=graph_ms(kernel, layers), plain_ms=graph_ms(plain, layers),
+                library_ms=graph_ms(library, layers), bound_ms=b_ms, bound_by=b_by)
+            log(f"time S={S} int8+table pos={pos} ({splits} ranges of {split_rows} "
+                f"rows, {S * H * splits} CTAs): kernel {r['ms'] * 1e3:.2f} us, plain "
+                f"{r['plain_ms'] * 1e3:.2f} us, library (SDPA, dense bf16) "
+                f"{r['library_ms'] * 1e3:.2f} us, bound ({b_by}) {b_ms * 1e3:.2f} us")
+        del caches, dense_kv
     return rows
 
 
@@ -1179,7 +1202,8 @@ def train_path(tmp):
     torch.cuda.empty_cache()
     cli_train_steps(tmp)
     return dict(launches=launches, steps_per_s=sps, tokens_per_s=sps * tokens,
-                peak_mib=peak, loss_first=losses[0], loss_last=losses[-1])
+                peak_mib=peak, loss_first=losses[0], loss_last=losses[-1],
+                batch=batch)
 
 
 def serve_from_checkpoint(tmp, ckpt, trained):
@@ -1571,9 +1595,9 @@ def batch_invariance(dev, smi):
                                             dist_buckets=dist, k_scale=ks, v_scale=vs)
             diff = (got.float() - want[idx].float()).abs().max().item()
             log(f"[{smi}] batch invariance, paged kernel (t5_small width, int8 "
-                f"pages, pos {pos}): {kept} of {full} streams "
-                f"({da.decode_splits(kept, H, pos)[0]} ranges) vs the full batch "
-                f"({da.decode_splits(full, H, pos)[0]} ranges): max|diff| {diff:.3e}")
+                f"pages, pos {pos}, {da.decode_splits(pos)[0]} ranges): {kept} of "
+                f"{full} streams vs the full batch: max|diff| {diff:.3e}")
+            assert torch.equal(got, want[idx]), (pos, kept, diff)
     full = 104
     kv = int4_inputs(full, gen, dev)
     q = torch.randn(full, H4, DK4, generator=gen).to(dev).to(torch.bfloat16)
@@ -1584,6 +1608,7 @@ def batch_invariance(dev, smi):
         diff = (got.float() - want[idx].float()).abs().max().item()
         log(f"[{smi}] batch invariance, int4 cross kernel (S {full}, T {T4}): "
             f"{kept} of {full} streams vs the full batch: max|diff| {diff:.3e}")
+        assert torch.equal(got, want[idx]), (kept, diff)
     torch.cuda.synchronize()
 
 
@@ -1766,6 +1791,247 @@ def options_card_vs_cpu(smi):
         del gpu, cpu
 
 
+# ---------------------------------------------------------------------------
+# phase 9: data-parallel training and chunk-parallel evaluation
+# ---------------------------------------------------------------------------
+
+DDP_STEPS = 5
+# 9a: DDP at world 1 against the same steps without a process group: the
+# all-reduce of one rank averages over 1, so the losses must be the same
+TOL_DDP1_LOSS_REL = 1e-6
+# 9b: two gloo ranks on the one card against one process, t5_small width in
+# fp32 (TF32 off), dropout 0, no SpecAugment, AdamW at 1e-4: the loss is
+# summed in another order; Adam turns a gradient at the rounding level into
+# a step of about ±lr, so each weight tensor is held by ||w2 - w1|| / ||w1||
+TOL_DDP2_LOSS_REL, TOL_DDP2_WEIGHT_REL = 1e-5, 1e-4
+DDP2_BATCH, DDP2_STEPS = 8, 2
+RANK_TIMEOUT_S = 300.0
+
+
+def flagship_train_steps(tmp, batch, tag):
+    """DDP_STEPS of phase 6's run (seed, schedule) on the global `batch`
+    through trainer.train inside whatever process group exists; → losses,
+    steps/s (over the median step, the first excluded), peak MiB, the fused
+    log-mel kernel's launches."""
+    import itertools
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.ops import fused_logmel as fl
+    from yourmt3_tpu_torch.ops.frontend import SpectrogramFrontend
+    from yourmt3_tpu_torch.parallel import mesh
+    from yourmt3_tpu_torch.train.trainer import train
+    bundle = api.init_model("perceiver_tf_mc13", "mc13_full_plus_256", seed=0)
+    bundle.frontend = SpectrogramFrontend.from_config(
+        bundle.audio_cfg, use_pallas=True, device=bundle.device)
+    steps = StepLog()
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train(bundle, itertools.repeat(batch), total_steps=DDP_STEPS, log_every=1,
+          ckpt_every=0, ckpt_dir=os.path.join(tmp, f"ddp_{tag}"), base_lr=1e-3,
+          warmup_steps=2, seed=0, logger=steps, n_data_shards=mesh.world_size())
+    torch.cuda.synchronize()
+    times = [t for _, t, _ in steps.records]
+    out = dict(losses=[m["loss"] for _, _, m in steps.records],
+               sps=1.0 / float(np.median(np.diff(times))),
+               peak=torch.cuda.max_memory_allocated() / 2**20,
+               launches=fl.fused_logmel.launches)
+    del bundle
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_train_path(tmp, trained, smi):
+    """Phase 9a: the flagship through trainer.train inside the NCCL group of
+    world 1 (DDP's bucketed all-reduce on the card) against the same steps
+    without a group."""
+    from yourmt3_tpu_torch.parallel import mesh
+    assert mesh.data_group() is not None
+    ddp = flagship_train_steps(tmp, trained["batch"], "nccl")
+    mesh.destroy()
+    plain = flagship_train_steps(tmp, trained["batch"], "plain")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ddp["losses"], plain["losses"]))
+    log(f"[{smi}] phase 9a: trainer.train(n_data_shards=1) in an NCCL group of "
+        f"world 1 (DDP), flagship batch {TRAIN_BATCH}, fused log-mel frontend, "
+        f"dropout + SpecAugment, {DDP_STEPS} steps of phase 6's run: losses "
+        f"{' '.join(f'{x:.6f}' for x in ddp['losses'])}; without a group "
+        f"{' '.join(f'{x:.6f}' for x in plain['losses'])}; max rel diff "
+        f"{rel:.3e} (tol {TOL_DDP1_LOSS_REL}); {ddp['sps']:.3f} steps/s (median "
+        f"step; without a group {plain['sps']:.3f}, phase 6 "
+        f"{trained['steps_per_s']:.3f}); peak {ddp['peak']:.1f} MiB (without "
+        f"{plain['peak']:.1f}, phase 6 {trained['peak_mib']:.1f}); fused_logmel "
+        f"launches {ddp['launches']}")
+    assert ddp["launches"] == DDP_STEPS, ddp["launches"]
+    assert rel <= TOL_DDP1_LOSS_REL, rel
+    return ddp
+
+
+def t5_train_steps(batches, ckpt_dir, n_data_shards):
+    """DDP2_STEPS of t5_small (fp32, dropout 0, no SpecAugment, AdamW at
+    1e-4) through trainer.train; → (metrics by step, weights on the CPU)."""
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.train.trainer import train
+    bundle = api.init_model("t5_small", "mt3_full_plus", seed=0,
+                            compute_dtype="float32", dropout_rate=0.0)
+    steps = StepLog()
+    train(bundle, iter(batches), total_steps=len(batches), log_every=1, ckpt_every=0,
+          ckpt_dir=ckpt_dir, base_lr=1e-4, schedule="constant", warmup_steps=1,
+          spec_augment=False, seed=0, logger=steps, n_data_shards=n_data_shards)
+    return ([m for _, _, m in steps.records],
+            {k: v.cpu() for k, v in bundle.model.state_dict().items()})
+
+
+def _rank_main(rank, world, tmp):
+    """One rank of phase 9b: a spawned process in a gloo group, on cuda:0."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batches = torch.load(os.path.join(tmp, "9b_batches.pt"), weights_only=False)
+    metrics, weights = t5_train_steps(batches, os.path.join(tmp, f"9b_{rank}"), world)
+    torch.save(dict(metrics=metrics, weights=weights),
+               os.path.join(tmp, f"9b_rank{rank}.pt"))
+
+
+def run_ranks(tmp, world):
+    """Spawn `world` ranks of _rank_main on cuda:0 and wait for them (a
+    rank that raises, or RANK_TIMEOUT_S, fails the run); → their results
+    and the wall time with the processes' start."""
+    import torch
+    from yourmt3_tpu_torch.parallel import mesh
+    t0 = time.perf_counter()
+    mesh.spawn_ranks(_rank_main, world, f"file://{tmp}/rendezvous_9b", backend="gloo",
+                     device="cuda:0", timeout_s=RANK_TIMEOUT_S, args=(tmp,))
+    return ([torch.load(os.path.join(tmp, f"9b_rank{r}.pt")) for r in range(world)],
+            time.perf_counter() - t0)
+
+
+def two_ranks_on_one_card(tmp, smi):
+    """Phase 9b: two gloo ranks share the card (NCCL refuses two ranks on
+    one GPU) and train t5_small on halves of each global batch; their
+    losses and weights against one process on the whole batches."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.config.data_presets import get_data_preset
+    from yourmt3_tpu_torch.data.dataset_train import TrainDataset
+    tm = api.init_model("t5_small", "mt3_full_plus", seed=0).task_manager
+    ds = TrainDataset(get_data_preset("synth_smoke").index_files("train"), tm,
+                      seed=0)
+    batches = [ds.make_batch(DDP2_BATCH) for _ in range(DDP2_STEPS)]
+    torch.save(batches, os.path.join(tmp, "9b_batches.pt"))
+    ranks, t_ranks = run_ranks(tmp, 2)
+    one, w1 = t5_train_steps(batches, os.path.join(tmp, "9b_one"), 1)
+    two, w2 = ranks[0]["metrics"], ranks[0]["weights"]
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(two, one))
+    w_rel = max(((w2[k] - w1[k]).norm() / w1[k].norm()).item() for k in w1)
+    same = all(torch.equal(ranks[1]["weights"][k], w2[k]) for k in w2)
+    tokens = [int((b["labels"] != 0).sum()) for b in batches]
+    log(f"[{smi}] phase 9b: 2 gloo ranks on one card, t5_small fp32, global batch "
+        f"{DDP2_BATCH} ({DDP2_BATCH // 2} per rank, target tokens {tokens}), "
+        f"{DDP2_STEPS} steps, {t_ranks:.1f} s with the processes' start: losses "
+        f"{[round(m['loss'], 6) for m in two]} vs one process "
+        f"{[round(m['loss'], 6) for m in one]}, max rel diff {loss_rel:.3e} (tol "
+        f"{TOL_DDP2_LOSS_REL}); grad norms {[round(m['grad_norm'], 5) for m in two]} "
+        f"vs {[round(m['grad_norm'], 5) for m in one]}; weights max ||w2 - w1|| / "
+        f"||w1|| {w_rel:.3e} (tol {TOL_DDP2_WEIGHT_REL}); both ranks hold the same "
+        f"weights: {same}")
+    assert len(two) == len(one) == DDP2_STEPS
+    assert loss_rel <= TOL_DDP2_LOSS_REL and w_rel <= TOL_DDP2_WEIGHT_REL, (loss_rel, w_rel)
+    assert same
+
+
+def chunk_parallel_eval(tmp, smi, evaluated):
+    """Phase 9c, inside the NCCL group of world 1: cli.test scores phase 7's
+    split chunk-parallel (-b 8 segments per rank: the single path's batch)
+    and must write phase 7's JSON; then t5_small's fast path decodes phase
+    3a's song through transcribe_song_chunk_parallel and must give the
+    single path's notes and errors."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.cli import test as cli_test
+    from yourmt3_tpu_torch.models import decoding
+    from yourmt3_tpu_torch.ops import decode_attention as da
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    from yourmt3_tpu_torch.parallel import mesh
+    from yourmt3_tpu_torch.parallel.chunk_stream import transcribe_song_chunk_parallel
+    from yourmt3_tpu_torch.train.checkpoint import read_meta
+    assert mesh.world_size() == 1 and mesh.data_group() is not None
+    ckpt = os.path.join(tmp, "flagship_run", "last")
+    layers = read_meta(ckpt)["model"]["num_decoder_layers"]
+    out_json = os.path.join(tmp, "eval_mesh.json")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli_test.main(["-ckpt", ckpt, "-d", "synth_mc", "--split", "test",
+                   "--kv-quant", "int8c4p", "--weight-quant", "int8",
+                   "-b", "8", "--output-json", out_json])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, paged = ia.int4_cross_attention.launches, da.paged_decode_attention.launches
+    greedy = decoding.greedy_decode.steps
+    with open(out_json) as f, open(os.path.join(tmp, "eval.json")) as g:
+        same_json = f.read() == g.read()
+    log(f"[{smi}] phase 9c: cli.test in an NCCL group of world 1 (chunk-parallel, "
+        f"8 segments per rank), perceiver_tf_mc13 int8c4p + int8 weights, phase 6 "
+        f"checkpoint, {evaluated['audio_s']:.1f} s of audio: {wall:.2f} s incl. "
+        f"load = {evaluated['audio_s'] / wall:.3f} audio-s/s (phase 7, one device: "
+        f"{evaluated['wall']:.2f} s = {evaluated['audio_s'] / evaluated['wall']:.3f} "
+        f"audio-s/s); greedy steps {greedy}; int4 launches {launches}; paged "
+        f"{paged}; metrics JSON identical to phase 7's: {same_json}")
+    assert launches == layers * greedy and launches > 0, (launches, greedy)
+    assert paged == 0 and same_json
+
+    seconds = 6.0
+    song = sine_song(seconds)
+    bundle = api.init_model("t5_small", "mt3_full_plus", seed=0,
+                            **api.fast_decode_overrides(1, 1024))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    notes, errs = transcribe_song_chunk_parallel(bundle, song, segments_per_device=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, greedy = da.paged_decode_attention.launches, decoding.greedy_decode.steps
+    t0 = time.perf_counter()
+    ref_notes, ref_errs = api.transcribe_audio_array(bundle, song, batch_size=8)
+    torch.cuda.synchronize()
+    wall_one = time.perf_counter() - t0
+    log(f"[{smi}] phase 9c: transcribe_song_chunk_parallel t5_small fast path "
+        f"(int8 paged kernel), {seconds} s song, 8 segments per rank, L 1024: "
+        f"{wall:.2f} s = {seconds / wall:.3f} audio-s/s (one device through "
+        f"transcribe_audio_array: {wall_one:.2f} s = {seconds / wall_one:.3f}); "
+        f"greedy steps {greedy}; paged launches {launches}; notes {len(notes)}, "
+        f"errors {errs.total()}; identical to the one-device path: "
+        f"{notes == ref_notes and errs == ref_errs}")
+    assert launches == 8 * greedy and launches > 0, (launches, greedy)
+    assert notes == ref_notes and errs == ref_errs
+
+
+def phase9(tmp, smi, trained, evaluated):
+    """Phase 9: 9c and 9a in an NCCL group of world 1, then 9b's two gloo
+    ranks."""
+    import torch
+    from yourmt3_tpu_torch.parallel import mesh
+    import torch.distributed as dist
+    t9 = time.perf_counter()
+    mesh.init_data_parallel(0, 1, init_method=f"file://{tmp}/rendezvous_9",
+                            device="cuda")
+    try:
+        t0 = time.perf_counter()
+        dist.barrier()  # NCCL builds its communicator at the first collective
+        torch.cuda.synchronize()
+        log(f"[{smi}] phase 9: NCCL group of world 1 and its communicator set "
+            f"up in {time.perf_counter() - t9:.2f} s (the first collective "
+            f"{time.perf_counter() - t0:.2f} s)")
+        chunk_parallel_eval(tmp, smi, evaluated)
+        ddp = ddp_train_path(tmp, trained, smi)  # leaves the group
+    finally:
+        mesh.destroy()
+    torch.cuda.empty_cache()
+    two_ranks_on_one_card(tmp, smi)
+    log(f"phase 9 took {time.perf_counter() - t9:.1f} s")
+    return ddp
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--kernels-only", action="store_true",
@@ -1807,12 +2073,15 @@ def main(argv=None) -> int:
         launches = main_path(tmp)
         launches4 = flagship_path(tmp)
         trained = train_path(tmp)
-        eval_path(tmp, dev, smi)
+        evaluated = eval_path(tmp, dev, smi)
         t8 = time.perf_counter()
         moe_flagship_path(tmp, smi)
         conformer_path(tmp, smi)
+        t8 = time.perf_counter() - t8
+        phase9(tmp, smi, trained, evaluated)
+    t8c = time.perf_counter()
     options_card_vs_cpu(smi)
-    log(f"phase 8 took {time.perf_counter() - t8:.1f} s")
+    log(f"phase 8 took {t8 + time.perf_counter() - t8c:.1f} s")
     kernel_in_model()
     flagship_in_model()
     where_time_goes("t5_small", api.init_model(
@@ -1823,7 +2092,7 @@ def main(argv=None) -> int:
         "perceiver_tf_mc13", "mc13_full_plus_256", seed=0, **FLAGSHIP),
         sine_song(16.0), 112, "int4_cross_kernel")
 
-    r, r4, rm = rows[1023], rows4[104], rows_mel[TRAIN_BATCH]
+    r, r4, rm = rows[8, 1023], rows4[104], rows_mel[TRAIN_BATCH]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "yourmt3_tpu_torch/ops/csrc/paged_decode_attention.cu",

@@ -85,9 +85,9 @@ def _paged_case(S, dk, kind, gen, dev, nb=NB):
     return pages, kw
 
 
-# S·H below the SM count (48, 96: split-KV with a merge) and above it
-# (192, 624: one range, written directly); pos 700 leaves the last range
-# partial; dk = 128 with bf16 pages
+# ranges of 128 rows at every S (S·H from 48 to 624); pos 0 and 63: one
+# range, written directly; pos 700 leaves the last range partial; dk = 128
+# with bf16 pages
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16], ids=["q32", "q16"])
 @pytest.mark.parametrize("S,dk,kind", [(8, 64, "int8"), (16, 64, "int8"), (32, 64, "int8"),
                                        (104, 64, "bf16"), (8, 128, "bf16"),
@@ -97,11 +97,9 @@ def test_paged_split_kv_matches_plain(dev, S, dk, kind, qdt):
     pages, kw = _paged_case(S, dk, kind, gen, dev)
     q = torch.randn(S, H, dk, generator=gen).to(dev, qdt)
     for pos in (0, 63, 64, 700, L - 1):
-        splits, rows = da.decode_splits(S, H, pos)
+        splits, rows = da.decode_splits(pos)
         assert splits == -(-(pos + 1) // rows)
-        assert splits == 1 or rows % 64 == 0
-        if S * H >= torch.cuda.get_device_properties(dev).multi_processor_count:
-            assert splits == 1
+        assert rows == min(pos + 1, 128)
         before = da.paged_decode_attention.launches
         got = da.paged_decode_attention(q, pages["k"], pages["v"], pos,
                                         rel_max_distance=MAXD, **kw)
@@ -114,6 +112,35 @@ def test_paged_split_kv_matches_plain(dev, S, dk, kind, qdt):
         assert err < TOL[qdt], (pos, splits, err)
 
 
+@pytest.mark.parametrize("pos", [127, 511, 1023])
+def test_paged_output_does_not_depend_on_the_batch(dev, pos):
+    """A stream's output is bit-identical whether it is decoded alone or
+    among 8, 16 or 48 streams (the rows of a compacted batch, gathered
+    from the full one)."""
+    gen = torch.Generator().manual_seed(pos)
+    full = 48
+    pages, kw = _paged_case(full, DK, "int8", gen, dev)
+    q = torch.randn(full, H, DK, generator=gen).to(dev, torch.bfloat16)
+    want = da.paged_decode_attention(q, pages["k"], pages["v"], pos,
+                                     rel_max_distance=MAXD, **kw)
+    for kept in (1, 8, 16):
+        idx = torch.randperm(full, generator=gen)[:kept].sort().values.to(dev)
+        got = da.paged_decode_attention(
+            q[idx], pages["k"][:, idx].contiguous(), pages["v"][:, idx].contiguous(),
+            pos, rel_max_distance=MAXD, rel_table=kw["rel_table"],
+            k_scale=kw["k_scale"][idx].contiguous(),
+            v_scale=kw["v_scale"][idx].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(got, want[idx]), (pos, kept)
+
+
+def test_decode_splits_do_not_depend_on_the_stream_count(dev):
+    """The operator's split takes the decode position alone (no stream
+    or head count): ranges of 128 live rows."""
+    for pos in (0, 127, 128, 511, 1023, 4095):
+        assert da.decode_splits(pos) == (-(-(pos + 1) // 128), min(pos + 1, 128)), pos
+
+
 def test_paged_op_replays_in_a_cuda_graph(dev):
     """Captured once (output, split workspace and merge inside the graph),
     replayed three times: the eager result each time."""
@@ -122,7 +149,7 @@ def test_paged_op_replays_in_a_cuda_graph(dev):
     kw["dist_buckets"] = da.distance_buckets(BUCKETS, MAXD, dev)
     q = torch.randn(S, H, DK, generator=gen).to(dev, torch.bfloat16)
     pos = L - 1
-    assert da.decode_splits(S, H, pos)[0] > 1
+    assert da.decode_splits(pos)[0] > 1
     eager = da.paged_decode_attention(q, pages["k"], pages["v"], pos, **kw)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())

@@ -4,6 +4,7 @@ CUDA unless the caller asks for the CPU."""
 
 import ast
 import pathlib
+import sys
 import types
 
 import pytest
@@ -77,31 +78,28 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["-ckpt", "--url"])
-def test_cli_rejects_unported_inputs(tmp_path, flag):
-    """--url is not ported; -ckpt is, and a directory that holds no
-    checkpoint is refused."""
+def test_cli_rejects_unported_inputs(tmp_path, flag, monkeypatch):
+    """A directory that holds no checkpoint is refused; --url without
+    yt-dlp installed exits naming it, as the JAX CLI does (with yt-dlp it
+    runs: tests/test_torch_tooling.py)."""
     from yourmt3_tpu_torch.cli import transcribe as cli
     if flag == "--url":
-        with pytest.raises(SystemExit, match="not yet ported"):
-            cli.main(["a.wav", flag, str(tmp_path)])
+        monkeypatch.setitem(sys.modules, "yt_dlp", None)
+        with pytest.raises(SystemExit, match="yt-dlp"):
+            cli.main([flag, "https://youtu.be/x", "-o", str(tmp_path)])
     else:
         with pytest.raises(FileNotFoundError, match="no checkpoint"):
             cli.main(["a.wav", flag, str(tmp_path)])
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     """What the port does not carry yet raises, naming its ROADMAP item:
-    the D-Adaptation optimizer, data-parallel training and the evaluator's
-    chunk-parallel mesh. (Every encoder and option of ModelConfig builds:
-    tests/test_torch_encoder_options.py.)"""
+    an Orbax checkpoint of the JAX package. (D-Adaptation, data-parallel
+    training and the evaluator's mesh run: tests/test_torch_dadapt.py,
+    tests/test_torch_parallel.py; every encoder and option of ModelConfig
+    builds: tests/test_torch_encoder_options.py.)"""
     from yourmt3_tpu_torch import api
-    from yourmt3_tpu_torch.eval.evaluator import evaluate_file_dataset
-    from yourmt3_tpu_torch.train.optim import make_optimizer
-    from yourmt3_tpu_torch.train.trainer import train
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer("dadapt_adam")
-    bundle = api.init_model("t5_tiny", "mt3_full_plus_256", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(bundle, iter(()), n_data_shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
-        evaluate_file_dataset(bundle, [], mesh=object())
+    orbax = tmp_path / "orbax"
+    (orbax / "params").mkdir(parents=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+        api.load_checkpoint(str(orbax), device="cpu")

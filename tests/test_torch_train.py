@@ -238,8 +238,12 @@ def test_schedules_match_optax(name):
 
 
 def test_dadapt_adam_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.make_optimizer("dadapt_adam")
+    """D-Adaptation is ported (tests/test_torch_dadapt.py holds it against
+    optax): it builds; an optimizer the reference does not have raises."""
+    tx = optim.make_optimizer("dadapt_adam")
+    assert "estim_lr" in tx.init({"w": torch.zeros(3)})["1"]
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        optim.make_optimizer("dadapt_sgd")
 
 
 @pytest.mark.parametrize("semitones", [-2, 1])

@@ -4,13 +4,19 @@
 
 Restores a checkpoint written by the port's trainer (train/checkpoint.py),
 decodes every track of the preset's split and prints the metric dict per
-dataset. Runs on the CUDA device unless --cpu is given.
+dataset. Runs on the CUDA device unless --cpu is given. Inside a process
+group (or under torchrun, WORLD_SIZE > 1, which joins one) each song is
+decoded chunk-parallel over the ranks, -b segments per rank
+(eval/evaluator.py `mesh`; plain greedy only: --beam-size,
+--repetition-guard and --repair-beam raise there); rank 0 prints and
+writes the JSON.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from typing import List, Optional
 
 
@@ -53,18 +59,25 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from ..config.data_presets import get_data_preset
     from ..data.dataset_eval import AudioFileDataset
     from ..eval.evaluator import evaluate_file_dataset
+    from ..parallel import mesh
 
+    device = "cpu" if args.cpu else None
+    own_group = int(os.environ.get("WORLD_SIZE", 1)) > 1 and mesh.data_group() is None
+    if own_group:
+        mesh.init_data_parallel(device=device)
+    group = mesh.data_group()
+    lead = mesh.rank(group) == 0
     ov = {}
     if args.kv_quant is not None:
         ov["kv_quant"] = args.kv_quant
     if args.weight_quant is not None:
         ov["weight_quant"] = args.weight_quant
-    bundle = load_checkpoint(args.checkpoint,
-                             device="cpu" if args.cpu else None, **ov)
+    bundle = load_checkpoint(args.checkpoint, device=device, **ov)
     preset = get_data_preset(args.data_preset)
     results = {}
     for entry, idx in zip(preset.entries, preset.index_files(args.split)):
-        print(f"== {entry.dataset} ({args.split}) ==")
+        if lead:
+            print(f"== {entry.dataset} ({args.split}) ==")
         ds = AudioFileDataset(idx, bundle.audio_cfg, max_tracks=args.max_tracks)
         res = evaluate_file_dataset(
             bundle, ds,
@@ -74,17 +87,22 @@ def main(argv: Optional[List[str]] = None) -> dict:
             batch_size=args.batch_size, subtask=args.subtask,
             beam_size=args.beam_size,
             repetition_guard=args.repetition_guard,
-            repair_beam=args.repair_beam)
+            repair_beam=args.repair_beam, mesh=group,
+            segments_per_device=args.batch_size)
         results[entry.dataset] = res
+        if not lead:
+            continue
         print("  " + " ".join(f"{k}={v:.4f}" for k, v in res.items()
                               if isinstance(v, float)))
         for name, row in res.get("per_class", {}).items():
             print(f"    {name:<14} onset_f1={row['f1']:.4f} "
                   f"P={row['precision']:.4f} R={row['recall']:.4f} "
                   f"n_ref={row['n_ref']}")
-    if args.output_json:
+    if args.output_json and lead:
         with open(args.output_json, "w") as f:
             json.dump(results, f, indent=2)
+    if own_group:
+        mesh.destroy()
     return results
 
 

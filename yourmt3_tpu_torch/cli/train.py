@@ -2,9 +2,14 @@
 
     python -m yourmt3_tpu_torch.cli.train my_exp -d synth_smoke -m t5_small
     python -m yourmt3_tpu_torch.cli.train my_exp -d synth_mc -m perceiver_tf_mc13
+    torchrun --nproc_per_node 4 -m yourmt3_tpu_torch.cli.train my_exp -b 64 \
+        -m perceiver_tf_mc13 -d synth_mc          # data parallel, 16 per card
 
 The flags are the reference's (`yourmt3_tpu/cli/train.py`). Runs on the
-CUDA device unless --cpu is given, and raises without one. The data
+CUDA device unless --cpu is given, and raises without one. Under torchrun
+(WORLD_SIZE > 1) every rank joins the process group (NCCL, or gloo with
+--cpu), -b is the global batch and rank 0 writes the logs and
+checkpoints. The data
 preset's index files live under $YMT3_DATA_HOME/yourmt3_indexes (build
 the synthetic set with data/preprocess/synth.py `build_synth_dataset`).
 """
@@ -54,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host batch-producer workers (default: auto from "
                         "CPU count; processes when >1)")
     p.add_argument("--n-data-shards", type=int, default=None,
-                   help="devices on the data axis (one device is ported)")
+                   help="ranks the global batch is split over (default "
+                        "and only value: the world size)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA device")
     return p
@@ -67,11 +73,15 @@ def main(argv=None) -> str:
     from ..api import init_model, load_checkpoint
     from ..config.data_presets import get_data_preset
     from ..data.dataset_train import TrainDataset
+    from ..parallel import mesh
     from ..train.trainer import MetricLogger, train
 
     preset = get_data_preset(args.data_preset)
     task = args.task or preset.default_task
     device = "cpu" if args.cpu else None
+    own_group = int(os.environ.get("WORLD_SIZE", 1)) > 1 and mesh.data_group() is None
+    if own_group:
+        mesh.init_data_parallel(device=device)
     overrides = {}
     if args.encoder:
         overrides["encoder_type"] = args.encoder
@@ -88,7 +98,8 @@ def main(argv=None) -> str:
                       pitch_shift_semitones=shifts,
                       align_crops=args.align_crops, seed=args.seed)
     ckpt_dir = args.ckpt_dir or os.path.join("runs", args.exp_name)
-    logger = MetricLogger(ckpt_dir, args.exp_name)
+    lead = mesh.rank() == 0
+    logger = MetricLogger(ckpt_dir, args.exp_name) if lead else None
     num_workers = args.num_workers
     if num_workers is None:  # auto: leave one core for the consumer
         num_workers = max(1, min(4, (os.cpu_count() or 1) - 1))
@@ -106,8 +117,12 @@ def main(argv=None) -> str:
               resume_from=args.resume)
     finally:
         batches.close()  # stops the producer threads or processes
-        logger.close()
-    print(f"done; checkpoints in {ckpt_dir}")
+        if logger is not None:
+            logger.close()
+        if own_group:
+            mesh.destroy()
+    if lead:
+        print(f"done; checkpoints in {ckpt_dir}")
     return ckpt_dir
 
 

@@ -1,6 +1,7 @@
 """One-shot transcription CLI: audio file(s) → MIDI, on the GPU.
 
     python -m yourmt3_tpu_torch.cli.transcribe song.wav -o out/ --decode-path fast
+    python -m yourmt3_tpu_torch.cli.transcribe --url https://youtu.be/... -o out/
 
 Runs on the CUDA device unless --cpu is given. -ckpt restores a
 checkpoint written by the port's trainer; without one the model is
@@ -19,8 +20,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     p = argparse.ArgumentParser(description="Transcribe audio → MIDI")
     p.add_argument("inputs", nargs="*", help="audio files (wav, flac)")
     p.add_argument("--url", default=None,
-                   help="YouTube URL (not ported: it needs network access "
-                        "and yt-dlp)")
+                   help="YouTube URL (needs network access and yt-dlp)")
     p.add_argument("-ckpt", "--checkpoint", default=None,
                    help="checkpoint dir written by the port's trainer; omit "
                         "for a randomly initialized model (smoke only)")
@@ -53,10 +53,20 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
                    help="run on the CPU instead of the CUDA device")
     args = p.parse_args(argv)
 
+    inputs = list(args.inputs)
     if args.url:
-        raise SystemExit("--url is not yet ported (ROADMAP Queue 1 item 18): "
-                         "pass a local audio file instead")
-    if not args.inputs:
+        try:
+            import yt_dlp  # noqa: F401
+        except ImportError:
+            raise SystemExit("YouTube ingestion requires yt-dlp + network; "
+                             "unavailable in this environment. Pass a local "
+                             "audio file instead.")
+        import tempfile
+
+        from ..app import fetch_youtube_audio
+        inputs.append(fetch_youtube_audio(
+            args.url, tempfile.mkdtemp(prefix="ymt3_yt_")))
+    if not inputs:
         raise SystemExit("no input files")
 
     from ..api import (fast_decode_overrides, init_model, load_checkpoint,
@@ -79,7 +89,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
                             device=device, **ov)
     os.makedirs(args.output_dir, exist_ok=True)
     outs = []
-    for path in args.inputs:
+    for path in inputs:
         out = os.path.join(
             args.output_dir,
             os.path.splitext(os.path.basename(path))[0] + ".mid")

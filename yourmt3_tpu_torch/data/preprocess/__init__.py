@@ -1,5 +1,6 @@
-"""Dataset builders → the index format of data/indexes.py. The port
-carries the synthetic corpus builder (synth.py); the per-dataset
-converters stay in the JAX package for now."""
+"""Datasets → the index format of data/indexes.py: the synthetic corpus
+(synth.py) and the per-dataset converters of native annotations
+(converters.py), which cli/install_dataset.py runs after an optional
+download (data/download.py)."""
 
 from . import synth  # noqa: F401

@@ -175,19 +175,27 @@ def shift_right(labels: torch.Tensor, start_id: int = 0) -> torch.Tensor:
     return torch.cat([start, labels[..., :-1]], dim=-1)
 
 
-def ce_loss(logits: torch.Tensor, labels: torch.Tensor,
-            label_smoothing: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pad-masked token cross entropy.
-
-    logits (B, C, L, V) fp32, labels (B, C, L) int → (scalar loss,
-    accuracy). With label smoothing ε the target log-likelihood is
-    (1 - ε)·log p(y) + ε·mean_v log p(v)."""
+def ce_sums(logits: torch.Tensor, labels: torch.Tensor,
+            label_smoothing: float = 0.0):
+    """Pad-masked token cross entropy as sums: → (negative log-likelihood
+    summed over the non-pad tokens, correct predictions among them, their
+    count), each a 0-dim fp32 tensor. With label smoothing ε the target
+    log-likelihood is (1 - ε)·log p(y) + ε·mean_v log p(v)."""
     mask = (labels != PAD_ID).to(torch.float32)
     logz = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logz, -1, labels[..., None].long())[..., 0]
     if label_smoothing > 0.0:
         ll = (1.0 - label_smoothing) * ll + label_smoothing * logz.mean(-1)
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = -(ll * mask).sum() / denom
-    acc = ((logits.argmax(-1) == labels).to(torch.float32) * mask).sum() / denom
-    return loss, acc
+    correct = ((logits.argmax(-1) == labels).to(torch.float32) * mask).sum()
+    return -(ll * mask).sum(), correct, mask.sum()
+
+
+def ce_loss(logits: torch.Tensor, labels: torch.Tensor,
+            label_smoothing: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad-masked token cross entropy, the mean over non-pad tokens.
+
+    logits (B, C, L, V) fp32, labels (B, C, L) int → (scalar loss,
+    accuracy)."""
+    nll, correct, count = ce_sums(logits, labels, label_smoothing)
+    denom = torch.clamp(count, min=1.0)
+    return nll / denom, correct / denom

@@ -20,9 +20,10 @@ constexpr int LOGMEL_MAX_MELS = 512;    // mel columns: their bands stay in regi
 
 extern "C" {
 
-// Rows per split-KV range for `rows` live rows of S*H (stream, head)
-// pairs on a card of `sms` SMs (paged_decode_attention.cu).
-int paged_decode_split_rows(int S, int H, int rows, int sms);
+// Rows per split-KV range for `rows` live rows: a function of `rows`
+// alone, so the split is the same at every batch size
+// (paged_decode_attention.cu).
+int paged_decode_split_rows(int rows);
 
 // dtype codes: 0 = fp32, 1 = bf16, 2 = int8 (pages only). Pointers that a
 // mode does not use are null. The live rows [0, pos] are cut into nsplit

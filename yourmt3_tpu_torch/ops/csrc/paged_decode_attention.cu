@@ -28,18 +28,19 @@
 //
 // Design:
 //   * split-KV: the live rows [0, pos] of a (stream, head) are cut into
-//     contiguous ranges of `split_rows` rows, one CTA each (grid
-//     S*H x nsplit). paged_decode_split_rows picks split_rows, a multiple
-//     of 64 and at least 128, so the grid covers the card about three
-//     times, the CTAs an SM holds at once (t5_small, pos 1023: 48 x 8 CTAs
-//     of 128 rows, one step of every warp); when S*H alone fills the card,
-//     or the live rows are few, there is one range and the CTA writes the
-//     output itself. Otherwise each CTA writes a partial softmax state
-//     (its max m, normaliser l, accumulator acc[dk]) and
-//     paged_decode_merge_kernel, launched right after on the same stream,
-//     rescales the partials by exp(m_i - m), sums them and writes the
-//     output. A range that starts past pos writes the empty partial
-//     (m = -1e30, l = 0), which the merge weighs by 0;
+//     contiguous ranges of SPLIT_ROWS = 128 rows, one CTA each (grid
+//     S*H x nsplit), so the split depends on the cache length alone and a
+//     stream's output is bit for bit the same in a batch of any size (the
+//     batch a stream is decoded in changes under early-exit compaction and
+//     across ranks of chunk-parallel decoding). 128 rows is one step of
+//     every warp; PERF.md has the sweep over range sizes that chose it.
+//     With pos < 128 there is one range and the CTA writes the output
+//     itself. Otherwise each CTA writes a partial softmax state (its max
+//     m, normaliser l, accumulator acc[dk]) and paged_decode_merge_kernel,
+//     launched right after on the same stream, rescales the partials by
+//     exp(m_i - m) and sums them in a fixed order, then writes the output.
+//     A range that starts past pos writes the empty partial (m = -1e30,
+//     l = 0), which the merge weighs by 0;
 //   * warps own their rows: a row of dk values is C = dk*sizeof(T)/16
 //     chunks of 16 bytes, lane t of a warp owns chunk t % C of row group
 //     t / C, so a warp reads G = 32/C whole rows per step with 16-byte
@@ -69,9 +70,7 @@ namespace {
 constexpr int NT = 128;
 constexpr int NWARPS = NT / 32;
 constexpr int U = 4;  // rows per lane per step
-constexpr int SPLIT_ALIGN = 64;
-constexpr int MIN_SPLIT_ROWS = 128;
-constexpr int CTAS_PER_SM = 3;  // resident at about 160 registers a thread
+constexpr int SPLIT_ROWS = 128;  // rows per split-KV range: one step of every warp
 constexpr int MAX_SPLITS = 4096;  // the merge keeps one float per range in shared memory
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -423,18 +422,10 @@ cudaError_t dispatch_kv(int kv_dtype, int dk, const Params& p, cudaStream_t stre
 
 }  // namespace
 
-// All the live rows (one range) when S*H fills the card, else a multiple
-// of 64 such that the grid covers the card about CTAS_PER_SM times (as
-// many CTAs as an SM holds at once, so every range is in flight
-// together), but at least MIN_SPLIT_ROWS: below that the merge costs more
-// than the range saves. PERF.md has the sweep over range sizes that chose
-// both.
-extern "C" int paged_decode_split_rows(int S, int H, int rows, int sms) {
-  const int pairs = S * H;
-  if (pairs >= sms || rows <= MIN_SPLIT_ROWS) return rows;
-  const int want = (CTAS_PER_SM * sms + pairs - 1) / pairs;  // ranges per pair
-  const int per = (rows + want - 1) / want;
-  return max((per + SPLIT_ALIGN - 1) / SPLIT_ALIGN * SPLIT_ALIGN, MIN_SPLIT_ROWS);
+// Ranges of SPLIT_ROWS rows whatever the batch, so that a stream's output
+// does not depend on the streams decoded beside it.
+extern "C" int paged_decode_split_rows(int rows) {
+  return rows <= SPLIT_ROWS ? rows : SPLIT_ROWS;
 }
 
 extern "C" int paged_decode_attention_launch(

@@ -62,13 +62,6 @@ int dtype_code(ScalarType t) {
   return t == ScalarType::Float ? 0 : t == ScalarType::BFloat16 ? 1 : 2;
 }
 
-int sm_count(c10::DeviceIndex dev) {
-  static int counts[64] = {0};
-  int& n = counts[dev];
-  if (n == 0) C10_CUDA_CHECK(cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev));
-  return n;
-}
-
 void check_launch(int err, const char* what) {
   TORCH_CHECK(err == 0, what, " launch failed: ",
               cudaGetErrorString(static_cast<cudaError_t>(err)), " (", err, ")");
@@ -94,11 +87,10 @@ Tensor as_3d(const Tensor& q) {
   return q;
 }
 
-// [nsplit, split_rows] for live rows [0, pos] of S*H pairs on card `dev`
-std::vector<int64_t> splits_for(int64_t S, int64_t H, int64_t pos, c10::DeviceIndex dev) {
+// [nsplit, split_rows] for live rows [0, pos]: the same for every batch
+std::vector<int64_t> splits_for(int64_t pos) {
   const int64_t rows = pos + 1;
-  const int64_t split_rows = paged_decode_split_rows(
-      static_cast<int>(S), static_cast<int>(H), static_cast<int>(rows), sm_count(dev));
+  const int64_t split_rows = paged_decode_split_rows(static_cast<int>(rows));
   return {(rows + split_rows - 1) / split_rows, split_rows};
 }
 
@@ -153,7 +145,7 @@ Tensor paged_decode_attention(const Tensor& q, const Tensor& k_cache,
           std::vector<int64_t>{H, L});
 
   const c10::cuda::CUDAGuard guard(q.device());
-  const std::vector<int64_t> sp = splits_for(S, H, pos, q.device().index());
+  const std::vector<int64_t> sp = splits_for(pos);
   const int64_t nsplit = sp[0];
   Tensor out = at::empty({S, H, dk}, q.options());
   Tensor work;
@@ -173,10 +165,9 @@ Tensor paged_decode_attention(const Tensor& q, const Tensor& k_cache,
   return q.dim() == 4 ? out.unsqueeze(2) : out;
 }
 
-std::vector<int64_t> paged_decode_splits(int64_t streams, int64_t heads, int64_t pos) {
-  TORCH_CHECK_VALUE(streams >= 1 && heads >= 1 && pos >= 0,
-                    "paged_decode_splits takes streams, heads >= 1 and pos >= 0");
-  return splits_for(streams, heads, pos, c10::cuda::current_device());
+std::vector<int64_t> paged_decode_splits(int64_t pos) {
+  TORCH_CHECK_VALUE(pos >= 0, "paged_decode_splits takes pos >= 0, got ", pos);
+  return splits_for(pos);
 }
 
 Tensor int4_cross_attention(const Tensor& q, const Tensor& k4, const Tensor& ks,
@@ -279,7 +270,7 @@ TORCH_LIBRARY(yourmt3_tpu_torch, m) {
   m.def("paged_decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, int pos, "
         "Tensor? bias_row=None, Tensor? rel_table=None, Tensor? dist_buckets=None, "
         "Tensor? k_scale=None, Tensor? v_scale=None) -> Tensor");
-  m.def("paged_decode_splits(int streams, int heads, int pos) -> int[]",
+  m.def("paged_decode_splits(int pos) -> int[]",
         &paged_decode_splits);
   m.def("int4_cross_attention(Tensor q, Tensor k4, Tensor ks, Tensor v4, Tensor vs) "
         "-> Tensor");

@@ -182,10 +182,11 @@ def paged_decode_attention(
 paged_decode_attention.launches = 0  # kernel launches since the last reset
 
 
-def decode_splits(streams: int, heads: int, pos: int):
-    """(ranges, rows per range) that the kernel picks on the current card
-    for `streams` x `heads` pairs at decode position `pos`."""
-    return tuple(cuda_build.op("paged_decode_splits")(streams, heads, pos))
+def decode_splits(pos: int):
+    """(ranges, rows per range) that the kernel picks at decode position
+    `pos`: ranges of 128 rows, chosen from the cache length alone, so a
+    stream's output does not depend on the batch it is decoded in."""
+    return tuple(cuda_build.op("paged_decode_splits")(pos))
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@ and renamed, so a preempted write never leaves a torn checkpoint. The
 decoder's quantized side-car weights are not saved: loading the state
 dict rebuilds them from the restored masters.
 
-Orbax checkpoints of the JAX package are not read here (ROADMAP Queue 1
-item 13: a converter, the one module allowed to import JAX).
+Orbax checkpoints of the JAX package are not read here: restoring one
+raises, naming ROADMAP Queue 1 item 13 (a converter).
 """
 
 from __future__ import annotations
@@ -89,6 +89,10 @@ def restore_bundle(path: str, model_preset: Optional[str] = None,
     path = os.path.abspath(path)
     params_path = os.path.join(path, PARAMS_NAME)
     if not os.path.exists(params_path):
+        if os.path.isdir(os.path.join(path, "params")):
+            raise NotImplementedError(
+                f"{path} is an Orbax checkpoint of the JAX package: converting "
+                "it is not ported yet (ROADMAP Queue 1 item 13)")
         raise FileNotFoundError(f"no checkpoint in {path} (no {PARAMS_NAME})")
     meta = read_meta(path)
     preset = model_preset or meta.get("model_preset", "t5_small")

@@ -17,7 +17,10 @@ What follows optax exactly, and where torch's own classes differ:
   (torch.optim.Adafactor differs in each);
 - `multi_steps` is optax.MultiSteps: the running mean of k
   micro-gradients goes to the inner optimizer every k-th call, which
-  alone advances the inner schedule; the other calls return zero updates.
+  alone advances the inner schedule; the other calls return zero updates;
+- `dadapt_adamw` is optax.contrib.dadapt_adamw (D-Adaptation, Defazio
+  and Mishchenko 2023): Adam whose step size d is estimated from the
+  gradients, the schedule a multiplier on d; torch has no counterpart.
 The factored statistics are symmetric in the two factored axes, so a
 torch (out, in) weight and the reference's (in, out) kernel get the same
 updates.
@@ -220,6 +223,58 @@ def adafactor(learning_rate: Schedule, min_dim_size_to_factor: int = 128,
                  scale(-1.0))
 
 
+def dadapt_adamw(learning_rate: Schedule, betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8, estim_lr0: float = 1e-6,
+                 weight_decay: float = 0.0) -> GradientTransformation:
+    """D-Adaptation AdamW, as optax.contrib.dadapt_adamw (optax 0.2.6):
+    the estimate d of the distance to the solution starts at estim_lr0
+    and only grows; each update is Adam's with step d · schedule(count) ·
+    bias correction, plus AdamW decay. The scalars are fp32 0-dim tensors
+    as in optax, so the state round-trips through torch.save with the
+    rest."""
+    b1, b2 = betas
+    sb2 = b2 ** 0.5
+
+    def init(params):
+        dev = next(iter(params.values())).device
+
+        def zeros():
+            return {k: torch.zeros_like(p) for k, p in params.items()}
+        return {"count": 0, "exp_avg": zeros(), "exp_avg_sq": zeros(),
+                "grad_sum": zeros(),
+                "estim_lr": torch.tensor(estim_lr0, dtype=torch.float32, device=dev),
+                "numerator_weighted": torch.zeros((), dtype=torch.float32, device=dev)}
+
+    def update(grads, state, params=None):
+        if params is None:
+            raise ValueError("dadapt_adamw needs the parameters")
+        count = state["count"] + 1
+        estim_lr = state["estim_lr"]
+        one = torch.ones((), dtype=torch.float32, device=estim_lr.device)
+        bc = torch.sqrt(1 - (one * b2) ** count) / (1 - (one * b1) ** count)
+        dlr = estim_lr * learning_rate(state["count"]) * bc
+        numerator_acum = sum(
+            torch.sum(g * (state["grad_sum"][k] / (torch.sqrt(state["exp_avg_sq"][k]) + eps)))
+            for k, g in grads.items())
+        exp_avg = {k: b1 * state["exp_avg"][k] + (1 - b1) * dlr * g
+                   for k, g in grads.items()}
+        exp_avg_sq = {k: b2 * state["exp_avg_sq"][k] + (1 - b2) * g * g
+                      for k, g in grads.items()}
+        grad_sum = {k: sb2 * state["grad_sum"][k] + (1 - sb2) * dlr * g
+                    for k, g in grads.items()}
+        grad_sum_l1 = sum(torch.sum(torch.abs(v)) for v in grad_sum.values())
+        numerator_weighted = (sb2 * state["numerator_weighted"]
+                              + (1 - sb2) * dlr * numerator_acum)
+        d_estimate = numerator_weighted / ((1 - sb2) * grad_sum_l1)
+        updates = {k: -weight_decay * dlr * params[k]
+                   - exp_avg[k] / (torch.sqrt(exp_avg_sq[k]) + eps) for k in grads}
+        return updates, {"count": count, "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq,
+                         "grad_sum": grad_sum,
+                         "estim_lr": torch.maximum(estim_lr, d_estimate),
+                         "numerator_weighted": numerator_weighted}
+    return GradientTransformation(init, update)
+
+
 def multi_steps(inner: GradientTransformation, k: int) -> GradientTransformation:
     def init(params):
         return {"mini_step": 0, "gradient_step": 0, "inner": inner.init(params),
@@ -253,10 +308,8 @@ def make_optimizer(name: str = "adamw", base_lr: float = 1e-3,
         core = adamw(sched, weight_decay=weight_decay)
     elif name == "adafactor":
         core = adafactor(sched)
-    elif name == "dadapt_adam":
-        raise NotImplementedError(
-            "optimizer 'dadapt_adam' is not ported yet (ROADMAP Queue 1 item "
-            "19: D-Adaptation Adam)")
+    elif name == "dadapt_adam":  # the schedule scales the estimated step
+        core = dadapt_adamw(sched)
     else:
         raise ValueError(f"unknown optimizer {name!r}")
     if grad_clip:

@@ -10,15 +10,18 @@ that are added to the parameters in place.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
-from ..models.ymt3 import YMT3, ce_loss, shift_right
+from ..models.ymt3 import YMT3, ce_loss, ce_sums, shift_right
 from ..ops.frontend import SpectrogramFrontend
-from .optim import GradientTransformation, global_norm
+from .optim import GradientTransformation, Params, global_norm
 
 
 @dataclasses.dataclass
@@ -50,7 +53,8 @@ def make_train_step(model: YMT3, frontend: SpectrogramFrontend,
                     tx: GradientTransformation, augment_fn: Optional[Callable] = None,
                     label_smoothing: float = 0.0, pitch_shift_semitones=None,
                     grad_clip: float = 1.0,
-                    shift_id_range: Optional[Tuple[int, int]] = None):
+                    shift_id_range: Optional[Tuple[int, int]] = None,
+                    group=None, grad_accum_steps: int = 1):
     """→ train_step(state, batch, gen) -> (state, metrics).
 
     batch: {"audio": (B, input_frames) f32, "labels": (B, C, L) int,
@@ -61,14 +65,48 @@ def make_train_step(model: YMT3, frontend: SpectrogramFrontend,
     synchronisation inside the step): loss, accuracy, grad_norm (before
     clipping), grad_norm_postclip and, with `shift_id_range` (the codec's
     [lo, hi) shift-token ids), shift_accuracy and shift_accuracy_50ms
-    (predicted shift within ±5 bins, the 50 ms onset tolerance)."""
+    (predicted shift within ±5 bins, the 50 ms onset tolerance).
+
+    group: a torch.distributed process group. The model runs under
+    DistributedDataParallel over it, `batch` is this rank's shard of the
+    global batch, and the step computes what the JAX package's step
+    computes on the global batch: the loss is the token mean over the
+    whole batch (each rank's masked sum is scaled by world / the
+    all-reduced token count, so DDP's average of the gradients is the
+    gradient of that mean), the metrics are global, and clipping acts on
+    the all-reduced gradients. With grad_accum_steps = k > 1 (tx wrapped
+    in `multi_steps(., k)`) the k - 1 steps that apply no update run
+    under `no_sync`: their gradients add up in `.grad` on each rank, the
+    optimizer is fed zeros for them, and the k-th step's all-reduce
+    brings the sum, which it is fed; its running mean then equals the
+    mean of the k global micro-gradients. On those k - 1 steps the
+    metrics hold no grad_norm; on the k-th, grad_norm is the norm of the
+    summed micro-gradients over k (their mean). `train_step.flush(state)`
+    folds gradients still pending in `.grad` into the optimizer state
+    (before a checkpoint)."""
     params = trainable_params(model)
     names = list(params)
+    dev = model.shared.weight.device
+    world = 1 if group is None else dist.get_world_size(group)
+    net = model
+    if group is not None:
+        net = DistributedDataParallel(
+            model, device_ids=[dev.index] if dev.type == "cuda" else None,
+            process_group=group)
+    accumulate = group is not None and grad_accum_steps > 1
+
+    def take_grads() -> Params:
+        out = {}
+        for k in names:
+            g = params[k].grad
+            out[k] = torch.zeros_like(params[k]) if g is None else g
+            params[k].grad = None
+        return out
 
     def train_step(state: TrainState, batch, gen: Optional[torch.Generator]):
         model.train()
         model.set_dropout_generator(gen)
-        audio, labels = _device_batch(batch, model.shared.weight.device)
+        audio, labels = _device_batch(batch, dev)
         with torch.no_grad():
             if pitch_shift_semitones is not None and "pitch_shift_idx" in batch:
                 from ..ops.pitchshift import batched_pitch_shift
@@ -78,32 +116,56 @@ def make_train_step(model: YMT3, frontend: SpectrogramFrontend,
             feats = frontend(audio)
             if augment_fn is not None:
                 feats = augment_fn(gen, feats)
-        logits = model(feats, shift_right(labels))
-        loss, acc = ce_loss(logits, labels, label_smoothing)
-        grads = torch.autograd.grad(loss, [params[k] for k in names],
-                                    allow_unused=True)
-        grads = {k: torch.zeros_like(params[k]) if g is None else g
-                 for k, g in zip(names, grads)}
+        applies = not accumulate or state.opt_state["mini_step"] == grad_accum_steps - 1
+        with contextlib.nullcontext() if applies else net.no_sync():
+            logits = net(feats, shift_right(labels))
+            nll, correct, count = ce_sums(logits, labels, label_smoothing)
+            sums = [nll.detach(), correct, count]
+            if shift_id_range is not None:
+                lo, hi = shift_id_range
+                pred = logits.detach().argmax(-1)
+                sm = ((labels >= lo) & (labels < hi)).to(torch.float32)
+                near = ((pred - labels).abs() <= 5) & (pred >= lo) & (pred < hi)
+                sums += [((pred == labels).to(torch.float32) * sm).sum(), sm.sum(),
+                         (near.to(torch.float32) * sm).sum()]
+            sums = torch.stack(sums)
+            if group is not None:
+                dist.all_reduce(sums, group=group)
+            denom = torch.clamp(sums[2], min=1.0)
+            (nll / denom * world).backward()
         with torch.no_grad():
+            metrics = {"loss": sums[0] / denom, "accuracy": sums[1] / denom}
+            if not applies:
+                grads = {k: torch.zeros_like(params[k]) for k in names}
+            else:
+                grads = take_grads()
+                gnorm = global_norm(grads)
+                if accumulate:
+                    gnorm = gnorm / grad_accum_steps
+                metrics.update(grad_norm=gnorm, grad_norm_postclip=(
+                    torch.clamp(gnorm, max=grad_clip) if grad_clip else gnorm))
             current = {k: params[k].detach() for k in names}
             updates, opt_state = tx.update(grads, state.opt_state, current)
             for k in names:
                 current[k].add_(updates[k])
-            gnorm = global_norm(grads)
-            metrics = {"loss": loss.detach(), "accuracy": acc, "grad_norm": gnorm,
-                       "grad_norm_postclip": (torch.clamp(gnorm, max=grad_clip)
-                                              if grad_clip else gnorm)}
             if shift_id_range is not None:
-                lo, hi = shift_id_range
-                pred = logits.argmax(-1)
-                sm = ((labels >= lo) & (labels < hi)).to(torch.float32)
-                denom = torch.clamp(sm.sum(), min=1.0)
-                hit = (pred == labels).to(torch.float32)
-                metrics["shift_accuracy"] = (hit * sm).sum() / denom
-                near = ((pred - labels).abs() <= 5) & (pred >= lo) & (pred < hi)
-                metrics["shift_accuracy_50ms"] = (near.to(torch.float32) * sm).sum() / denom
+                sd = torch.clamp(sums[4], min=1.0)
+                metrics["shift_accuracy"] = sums[3] / sd
+                metrics["shift_accuracy_50ms"] = sums[5] / sd
         return TrainState(state.step + 1, opt_state), metrics
 
+    @torch.no_grad()
+    def flush(state: TrainState) -> TrainState:
+        n = state.opt_state["mini_step"] if accumulate else 0
+        if n == 0:
+            return state
+        acc = state.opt_state["acc"]
+        for k, g in take_grads().items():
+            dist.all_reduce(g, group=group)
+            acc[k] += g / (world * n)
+        return state
+
+    train_step.flush = flush
     return train_step
 
 

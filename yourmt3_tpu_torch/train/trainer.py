@@ -4,7 +4,12 @@ Step loop with JSONL + console metric logging, periodic checkpoints
 ("last"), resume (optimizer state and step counter, so the schedule
 continues), a final checkpoint on preemption, and seeded randomness (one
 torch.Generator on the model's device draws SpecAugment and dropout).
-One device: the reference's data-parallel mesh is not ported yet.
+
+Data parallel: inside an initialised process group
+(parallel/mesh.init_data_parallel, e.g. under torchrun) every rank runs
+this loop on the same global batches, takes its shard and steps a
+DistributedDataParallel model (train_step.make_train_step); rank 0 alone
+writes logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from ..api import ModelBundle
 from ..ops.specaugment import SpecAugmentConfig, make_augment_fn
+from ..parallel import mesh
 from .checkpoint import read_meta, restore_opt_state, save_bundle
 from .optim import make_optimizer
 from .train_step import TrainState, create_train_state, make_train_step
@@ -57,6 +63,16 @@ class MetricLogger:
             self._wandb.finish()
 
 
+class _NoLogger:
+    """The logger of ranks other than 0."""
+
+    def log(self, step, metrics, prefix=""):
+        pass
+
+    def close(self):
+        pass
+
+
 def train(
     bundle: ModelBundle,
     batch_iter: Iterator[Dict[str, np.ndarray]],
@@ -84,11 +100,22 @@ def train(
     resume_from: a checkpoint directory written by this loop; its
     optimizer state and step counter are restored, so the schedule
     continues (the weights are expected in `bundle` already, e.g. from
-    `api.load_checkpoint`)."""
-    if n_data_shards is not None and n_data_shards > 1:
-        raise NotImplementedError(
-            f"n_data_shards={n_data_shards}: data-parallel training is not "
-            "ported yet (ROADMAP Queue 1 item 17: DDP)")
+    `api.load_checkpoint`).
+
+    n_data_shards: the ranks over which each global batch is split, as in
+    the JAX package; it must equal the size of the process group (1
+    without one), and defaults to it; a global batch that does not split
+    over the ranks raises in mesh.shard_batch. Inside an initialised group
+    the model trains under DDP, even at world 1."""
+    group = mesh.data_group()
+    world, rank = mesh.world_size(group), mesh.rank(group)
+    if n_data_shards is None:
+        n_data_shards = world
+    if n_data_shards != world:
+        raise ValueError(
+            f"n_data_shards={n_data_shards} but the process group has {world} "
+            "ranks: start one process per shard (torchrun) with a global batch "
+            "that splits over them")
     tx = make_optimizer(optimizer, base_lr, schedule, warmup_steps, total_steps,
                         grad_accum_steps=grad_accum_steps)
     aug = make_augment_fn(SpecAugmentConfig()) if spec_augment else None
@@ -98,7 +125,8 @@ def train(
     step_fn = make_train_step(model, bundle.frontend, tx, augment_fn=aug,
                               pitch_shift_semitones=pitch_shift_semitones,
                               shift_id_range=(shift_lo,
-                                              shift_lo + codec.max_shift_steps + 1))
+                                              shift_lo + codec.max_shift_steps + 1),
+                              group=group, grad_accum_steps=grad_accum_steps)
     state = create_train_state(model, tx)
     start_step = 0
     if resume_from:
@@ -113,29 +141,47 @@ def train(
                 f"{resume_from} records a step but holds no optimizer state: "
                 "resume from a checkpoint written by train(), or start a "
                 "fresh run from these weights")
-        print(f"resuming at step {start_step} from {resume_from}")
-    gen = torch.Generator(device=bundle.device).manual_seed(seed)
-    own_logger = logger is None
+        if rank == 0:
+            print(f"resuming at step {start_step} from {resume_from}")
+    gen = torch.Generator(device=bundle.device).manual_seed(seed + rank)
+    own_logger = logger is None and rank == 0
+    if rank:
+        logger = _NoLogger()
     logger = logger or MetricLogger(ckpt_dir)
 
     from ..utils.preemption import PreemptionGuard
     guard = PreemptionGuard.instance()
     guard.install()
 
+    def save(step):
+        nonlocal state
+        state = step_fn.flush(state)
+        if rank == 0:
+            save_bundle(last, bundle, step, opt_state=state.opt_state)
+
+    def preempted() -> bool:  # every rank must stop at the same step
+        if world == 1:
+            return guard.preempted
+        flag = torch.tensor([float(guard.preempted)], device=bundle.device)
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX,
+                                     group=group)
+        return bool(flag.item())
+
     last = os.path.join(ckpt_dir, "last")
     t0 = time.perf_counter()
     tokens_seen = 0
     try:
         for step in range(start_step + 1, total_steps + 1):
-            if guard.preempted:
+            if preempted():
                 # step N has not run: the weights hold N-1 completed
                 # updates, so record N-1 and a resume re-runs step N
-                print(f"preemption before step {step}: writing final checkpoint")
-                save_bundle(last, bundle, step - 1, opt_state=state.opt_state)
+                if rank == 0:
+                    print(f"preemption before step {step}: writing final checkpoint")
+                save(step - 1)
                 break
             batch = next(batch_iter)
             tokens_seen += int((np.asarray(batch["labels"]) != 0).sum())
-            state, metrics = step_fn(state, batch, gen)
+            state, metrics = step_fn(state, mesh.shard_batch(batch, group), gen)
             if step % log_every == 0 or step == total_steps:
                 m = {k: float(v) for k, v in metrics.items()}
                 dt = time.perf_counter() - t0
@@ -144,10 +190,11 @@ def train(
                 logger.log(step, m)
                 sh = (f" shift={m['shift_accuracy']:.3f}"
                       if "shift_accuracy" in m else "")
-                print(f"step {step}: loss={m['loss']:.4f} acc={m['accuracy']:.4f}"
-                      f"{sh} ({m['steps_per_sec']:.2f} it/s)")
+                if rank == 0:
+                    print(f"step {step}: loss={m['loss']:.4f} acc={m['accuracy']:.4f}"
+                          f"{sh} ({m['steps_per_sec']:.2f} it/s)")
             if ckpt_every and (step % ckpt_every == 0 or step == total_steps):
-                save_bundle(last, bundle, step, opt_state=state.opt_state)
+                save(step)
             if eval_fn is not None and eval_every and step % eval_every == 0:
                 model.eval()
                 logger.log(step, eval_fn(bundle), prefix="eval/")
