@@ -108,6 +108,24 @@ Phases:
         in fp32 on halves of global batches of 8 for 2 steps; the losses
         and weights must equal one process's within TOL_DDP2_LOSS_REL and
         TOL_DDP2_WEIGHT_REL.
+ 10. tensor parallel over the model axis and reference checkpoints, slice 7,
+     each path with every launch count set to 0 just before it (in each
+     rank) and read just after:
+     a. the full-width flagship in fp32 (fused log-mel frontend, dropout
+        0.05, SpecAugment) on a mesh of (data=1, model=2): two gloo ranks
+        share the card, parameters placed by mesh.shard_params, 3 AdamW
+        steps on a global batch of 8, against one process on the same
+        batch and generator seed: losses within TOL_TP_LOSS_REL, weights
+        within the TOL_TP_* rules; steps/s of both, peak memory per rank,
+        fused log-mel launches = steps in each rank;
+     b. the full-width MoE flagship, experts sharded, on (data=2, model=2):
+        four ranks, 2 steps, dropout 0, no SpecAugment, held the same way;
+     c. 10a's checkpoint (written whole by the sharded ranks) restores in
+        one process with the gathered weights and transcribes phase 3b's
+        16 s song through api.transcribe and the int4 kernel;
+     d. a reference-style .ckpt of a seeded full-width MoE flagship (experts
+        unstacked) loads through import_checkpoint(require_complete=True)
+        into a model of another seed, whose logits must equal the source's.
 
 Any failure raises: nothing is caught and nothing falls back. The last
 line is {"ok": true, "device": {...}}; the line before it lists each
@@ -2032,6 +2050,292 @@ def phase9(tmp, smi, trained, evaluated):
     return ddp
 
 
+# ---------------------------------------------------------------------------
+# phase 10: tensor parallel over the model axis, and reference checkpoints
+# ---------------------------------------------------------------------------
+
+TP_BATCH = 8
+# 10a: (data=1, model=2), the flagship with dropout and SpecAugment, whose
+# masks both ranks draw as one process does; 10b: (data=2, model=2), the
+# MoE flagship with dropout 0 and no SpecAugment (each data row draws its
+# own masks, which one process cannot repeat)
+TP_CASES = {
+    "10a": dict(preset="perceiver_tf_mc13", layout=(1, 2), steps=3, dropout=0.05,
+                spec_augment=True),
+    "10b": dict(preset="perceiver_tf_mc13_moe", layout=(2, 2), steps=2, dropout=0.0,
+                spec_augment=False),
+}
+TP_LR = 1e-4
+# fp32 (TF32 off) against one process: the sums are split over the ranks
+# and all-reduced, so the loss agrees to rounding; the weights are held per
+# tensor by ||w_tp - w_1|| / ||w_1||, as in tests/test_torch_tensor_parallel.py:
+# the decoder's at TOL_TP_WEIGHT_REL, the encoder's and the projection's
+# (their gradient passes back through the bf16 group projection, where
+# the partial gradients of the memory sum in another order, so they agree
+# to bf16's rounding) at TOL_TP_UPSTREAM_REL, bf16's unit roundoff, over
+# their elements outside the rounding band: those whose one-process first
+# gradient is nonzero and within TOL_TP_UPSTREAM_REL · rms of zero (the rms
+# of its row; of the whole tensor for a vector), where Adam's first step
+# (about lr · sign(g)) may turn. At most TP_BAND_MAX of the elements may
+# lie in the band.
+TOL_TP_LOSS_REL, TOL_TP_WEIGHT_REL, TOL_TP_UPSTREAM_REL = 1e-5, 1e-4, 2.0 ** -9
+TP_BAND_MAX = 1e-2
+TP_UPSTREAM = ("encoder.", "projection.")
+
+
+def tp_train(case, batch, group):
+    """The steps of a phase-10 case on the global `batch` over the mesh
+    `group` (None: one process) on cuda:0: the full-width model in fp32 with
+    the fused log-mel frontend, AdamW at TP_LR. → losses, step times, peak
+    MiB, fused log-mel launches (in one process also the rounding band of
+    the first gradient, see TOL_TP_*), the bundle."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.ops import fused_logmel as fl
+    from yourmt3_tpu_torch.ops.frontend import SpectrogramFrontend
+    from yourmt3_tpu_torch.ops.specaugment import make_augment_fn
+    from yourmt3_tpu_torch.parallel import mesh
+    from yourmt3_tpu_torch.parallel import tensor_parallel as tpl
+    from yourmt3_tpu_torch.train.optim import GradientTransformation, make_optimizer
+    from yourmt3_tpu_torch.train.train_step import create_train_state, make_train_step
+    c = TP_CASES[case]
+    bundle = api.init_model(c["preset"], "mc13_full_plus_256", seed=0,
+                            compute_dtype="float32", dropout_rate=c["dropout"])
+    bundle.frontend = SpectrogramFrontend.from_config(
+        bundle.audio_cfg, use_pallas=True, device=bundle.device)
+    if group is not None:
+        mesh.shard_params(group, bundle.model)
+        batch = mesh.shard_batch(batch, group)
+    tx = make_optimizer("adamw", TP_LR, "constant", 1, c["steps"])
+    band = {}
+    if group is None:
+        def update(g, opt_state, params=None, inner=tx.update):
+            for k in g if not band else ():
+                a = g[k].abs()
+                rms = (a.pow(2).mean(-1, keepdim=True) if a.ndim > 1
+                       else a.pow(2).mean()).sqrt()
+                band[k] = ((a > 0) & (a <= TOL_TP_UPSTREAM_REL * rms)
+                           if k.startswith(TP_UPSTREAM) else torch.zeros_like(a, dtype=bool))
+            return inner(g, opt_state, params)
+        tx = GradientTransformation(tx.init, update)
+    step = make_train_step(bundle.model, bundle.frontend, tx, group=group,
+                           augment_fn=make_augment_fn() if c["spec_augment"] else None)
+    state = create_train_state(bundle.model, tx)
+    gen = torch.Generator(device=bundle.device).manual_seed(
+        mesh.rank(group) if group is not None else 0)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], [time.perf_counter()]
+    for _ in range(c["steps"]):
+        tpl.traffic.update(all_reduce=0, all_gather=0, bytes=0)
+        state, metrics = step(state, batch, gen)
+        losses.append(float(metrics["loss"]))  # a host read: the step is done
+        times.append(time.perf_counter())
+    return dict(losses=losses, times=np.diff(times).tolist(),
+                peak=torch.cuda.max_memory_allocated() / 2**20,
+                launches=fl.fused_logmel.launches, traffic=dict(tpl.traffic),
+                band={k: v.cpu() for k, v in band.items()}), bundle
+
+
+def _tp_rank_main(rank, world, tmp, case):
+    """One rank of phase 10a/10b: a spawned process of a gloo group on
+    cuda:0. Every rank gathers the weights (the checkpoint too: rank 0
+    writes it); each writes its numbers, rank 0 the weights."""
+    import torch
+    from yourmt3_tpu_torch.parallel import mesh
+    from yourmt3_tpu_torch.train.checkpoint import _to_cpu, save_bundle
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = torch.load(os.path.join(tmp, "10_batch.pt"), weights_only=False)
+    out, bundle = tp_train(case, batch, mesh.make_mesh(*TP_CASES[case]["layout"]))
+    weights = _to_cpu(bundle.model.state_dict())
+    save_bundle(os.path.join(tmp, f"{case}_ckpt"), bundle,
+                step=TP_CASES[case]["steps"])
+    if rank == 0:
+        out["weights"] = weights
+    out["all_reduce_ms"] = all_reduce_ms(mesh.make_mesh(*TP_CASES[case]["layout"]),
+                                         bundle.device)
+    torch.save(out, os.path.join(tmp, f"{case}_rank{rank}.pt"))
+
+
+def all_reduce_ms(m, device, rounds=5):
+    """ms of one all-reduce over the model axis of an fp32 activation of the
+    flagship's Perceiver-TF blocks at TP_BATCH / n_data rows ((rows·256·26,
+    128)), as the step issues it (card → gloo → card), median of `rounds`."""
+    import torch
+    import torch.distributed as dist
+    rows = TP_BATCH // m.size(0)
+    x = torch.ones((rows * 256 * 26, 128), device=device)
+    group = m.get_group("model")
+    out = []
+    for _ in range(rounds + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(x, group=group)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out[1:]))
+
+
+def tp_weight_errors(got, want, band):
+    """Each tensor's relative error over its tolerance (see TOL_TP_*) →
+    {group: (worst tensor, its error, its tolerance)} for the groups
+    "bias", "upstream" (the encoder's and the projection's other tensors)
+    and "other", the number
+    of elements in the rounding band and the three tensors with the most."""
+    worst = {}
+    for k, w in want.items():
+        upstream = k.startswith(TP_UPSTREAM)
+        tol = TOL_TP_UPSTREAM_REL if upstream else TOL_TP_WEIGHT_REL
+        keep = ~band[k] if k in band else torch.ones_like(w, dtype=torch.bool)
+        err = ((got[k] - w)[keep].norm() / w[keep].norm()).item() if keep.any() else 0.0
+        g = "bias" if k.endswith(".bias") else "upstream" if upstream else "other"
+        if g not in worst or err / tol > worst[g][1] / worst[g][2]:
+            worst[g] = (k, err, tol)
+    counts = {k: int(b.sum()) for k, b in band.items()}
+    largest = sorted(counts, key=counts.get, reverse=True)[:3]
+    return worst, sum(counts.values()), [(k, counts[k], band[k].numel()) for k in largest]
+
+
+def tp_case(tmp, smi, case, batch):
+    """Phase 10a or 10b: the ranks of the case's layout share the card (gloo:
+    NCCL refuses two ranks on one GPU) against one process on the same
+    batch and generator seeds."""
+    import torch
+    from yourmt3_tpu_torch.parallel import mesh
+    c = TP_CASES[case]
+    n_data, n_model = c["layout"]
+    world = n_data * n_model
+    torch.save(batch, os.path.join(tmp, "10_batch.pt"))
+    t0 = time.perf_counter()
+    mesh.spawn_ranks(_tp_rank_main, world, f"file://{tmp}/rendezvous_{case}",
+                     backend="gloo", device="cuda:0", timeout_s=RANK_TIMEOUT_S,
+                     args=(tmp, case))
+    t_ranks = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"{case}_rank{r}.pt")) for r in range(world)]
+    one, bundle = tp_train(case, batch, None)
+    want = {k: v.detach().cpu() for k, v in bundle.model.state_dict().items()}
+    del bundle
+    torch.cuda.empty_cache()
+    tp = ranks[0]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(tp["losses"], one["losses"]))
+    worst, n_band, largest = tp_weight_errors(tp["weights"], want, one["band"])
+    n_all = sum(w.numel() for w in want.values())
+    weights_msg = "; ".join(f"{g} {k} {err:.3e} (tol {tol:.3e})"
+                            for g, (k, err, tol) in sorted(worst.items()))
+    launches = [r["launches"] for r in ranks]
+    # over the steps after the first (which includes the lazy set-up)
+    sps, sps1 = (1.0 / float(np.median(r["times"][1:])) for r in (tp, one))
+    log(f"[{smi}] phase {case}: {c['preset']} fp32 on a mesh (data={n_data}, "
+        f"model={n_model}) of {world} gloo ranks on one card, global batch {TP_BATCH}, "
+        f"{c['steps']} AdamW steps at {TP_LR}, dropout {c['dropout']}, SpecAugment "
+        f"{c['spec_augment']}, fused log-mel frontend; {t_ranks:.1f} s with the "
+        f"processes' start: losses {[round(x, 6) for x in tp['losses']]} vs one "
+        f"process {[round(x, 6) for x in one['losses']]}, max rel diff "
+        f"{loss_rel:.3e} (tol {TOL_TP_LOSS_REL}); worst relative weight error: "
+        f"{weights_msg}; {n_band} of {n_all} elements in the rounding band (at "
+        f"most {TP_BAND_MAX:.0%}; most in {largest}); {sps:.3f} steps/s (one process "
+        f"{sps1:.3f}; step s {[round(t, 3) for t in tp['times']]} vs "
+        f"{[round(t, 3) for t in one['times']]}); peak MiB per rank "
+        f"{[round(r['peak'], 1) for r in ranks]} (one process {one['peak']:.1f}); "
+        f"fused_logmel launches per rank {launches}")
+    tr = tp["traffic"]
+    log(f"[{smi}] phase {case}: rank 0's last step issued {tr['all_reduce']} "
+        f"all-reduces and {tr['all_gather']} all-gathers over the model axis, "
+        f"{tr['bytes'] / 2**20:.1f} MiB sent into them (the data axis: one "
+        f"flattened gradient all-reduce); one all-reduce of a Perceiver-TF "
+        f"activation over gloo took {tp['all_reduce_ms']:.2f} ms (median of 5)")
+    assert launches == [c["steps"]] * world, launches
+    assert one["launches"] == c["steps"], one["launches"]
+    assert loss_rel <= TOL_TP_LOSS_REL, loss_rel
+    assert all(err <= tol for _, err, tol in worst.values()), worst
+    assert n_band <= TP_BAND_MAX * n_all, (n_band, n_all)
+    return tp["weights"]
+
+
+def serve_tp_checkpoint(tmp, smi, gathered):
+    """Phase 10c: 10a's checkpoint, written by the sharded ranks, restores
+    in this one process with the gathered weights and transcribes phase
+    3b's 16 s song through api.transcribe and the int4 kernel."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.data.audio_io import write_wav
+    from yourmt3_tpu_torch.models import decoding
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    from yourmt3_tpu_torch.tokens.midi_io import midi2note
+    served = api.load_checkpoint(os.path.join(tmp, "10a_ckpt"), **FLAGSHIP)
+    same = all(torch.equal(v.cpu(), gathered[k])
+               for k, v in served.model.state_dict().items())
+    seconds = 16.0
+    wav = os.path.join(tmp, "tp_served.wav")
+    write_wav(wav, sine_song(seconds), 16000)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = api.transcribe(served, wav, os.path.join(tmp, "tp_served.mid"), batch_size=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, greedy = ia.int4_cross_attention.launches, decoding.greedy_decode.steps
+    beam = decoding.beam_decode.steps
+    notes = midi2note(out)
+    log(f"[{smi}] phase 10c: 10a's sharded checkpoint restored in one process "
+        f"(int8c4p K/V, int8 weights): weights equal the gathered shards: {same}; "
+        f"{seconds} s song in {wall:.2f} s, decode steps greedy {greedy} + beam "
+        f"{beam}; int4 kernel launches {launches}; notes {len(notes)}")
+    layers = served.cfg.num_decoder_layers
+    assert same and launches == layers * (greedy + beam) and launches > 0, (
+        same, launches, greedy, beam)
+
+
+def reference_import(tmp, smi):
+    """Phase 10d: a reference-style .ckpt written from a seeded full-width
+    flagship on the card (import_reference.reference_style_state_dict, the
+    experts per expert) loads through import_checkpoint(require_complete=True)
+    into a model of another seed; its logits must equal the source's."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.models.ymt3 import shift_right
+    from yourmt3_tpu_torch.train import import_reference
+    src = api.init_model("perceiver_tf_mc13_moe", "mc13_full_plus_256", seed=0)
+    path = os.path.join(tmp, "reference.ckpt")
+    sd = import_reference.reference_style_state_dict(src.model, per_expert=True)
+    torch.save({"state_dict": sd, "epoch": 0}, path)
+    dst = api.init_model("perceiver_tf_mc13_moe", "mc13_full_plus_256", seed=1)
+    t0 = time.perf_counter()
+    import_reference.import_checkpoint(path, dst.model, verbose=False,
+                                       require_complete=True)
+    t_import = time.perf_counter() - t0
+    n = src.audio_cfg.input_frames
+    audio = torch.from_numpy(sine_song(4 * n / 16000 + 0.1)[:4 * n].reshape(4, n)).to(
+        src.device)
+    labels = torch.randint(3, src.cfg.vocab_size, (4, src.cfg.num_channels, 64),
+                           generator=torch.Generator().manual_seed(0)).to(src.device)
+    with torch.no_grad():
+        want = src.model(src.frontend(audio), shift_right(labels))
+        got = dst.model(dst.frontend(audio), shift_right(labels))
+    equal = torch.equal(got, want)
+    log(f"[{smi}] phase 10d: perceiver_tf_mc13_moe (full width) → a reference-style "
+        f".ckpt of {len(sd)} tensors (experts unstacked, "
+        f"{os.path.getsize(path) / 2**20:.1f} MiB) → import_checkpoint("
+        f"require_complete=True) into a model of another seed in {t_import:.2f} s: "
+        f"logits {tuple(got.shape)} equal the source's: {equal} (max |diff| "
+        f"{(got - want).abs().max().item():.3e})")
+    assert equal
+
+
+def phase10(tmp, smi, trained):
+    """Phase 10: 10a and 10b (spawned ranks sharing the card), 10c on 10a's
+    checkpoint, 10d."""
+    t10 = time.perf_counter()
+    batch = {k: v[:TP_BATCH] for k, v in trained["batch"].items()}
+    gathered = tp_case(tmp, smi, "10a", batch)
+    serve_tp_checkpoint(tmp, smi, gathered)
+    tp_case(tmp, smi, "10b", batch)
+    reference_import(tmp, smi)
+    log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--kernels-only", action="store_true",
@@ -2079,6 +2383,7 @@ def main(argv=None) -> int:
         conformer_path(tmp, smi)
         t8 = time.perf_counter() - t8
         phase9(tmp, smi, trained, evaluated)
+        phase10(tmp, smi, trained)
     t8c = time.perf_counter()
     options_card_vs_cpu(smi)
     log(f"phase 8 took {t8 + time.perf_counter() - t8c:.1f} s")

@@ -93,13 +93,17 @@ def test_cli_rejects_unported_inputs(tmp_path, flag, monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
-    """What the port does not carry yet raises, naming its ROADMAP item:
-    an Orbax checkpoint of the JAX package. (D-Adaptation, data-parallel
-    training and the evaluator's mesh run: tests/test_torch_dadapt.py,
-    tests/test_torch_parallel.py; every encoder and option of ModelConfig
-    builds: tests/test_torch_encoder_options.py.)"""
+    """An Orbax checkpoint of the JAX package without its reference-style
+    export beside it raises, giving the one-line export recipe (the bridge
+    itself: tests/test_torch_import_reference.py). (D-Adaptation,
+    data-parallel training and the evaluator's mesh run:
+    tests/test_torch_dadapt.py, tests/test_torch_parallel.py; every encoder
+    and option of ModelConfig builds: tests/test_torch_encoder_options.py.)"""
     from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.train.checkpoint import EXPORT_RECIPE, REFERENCE_EXPORT
     orbax = tmp_path / "orbax"
     (orbax / "params").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+    with pytest.raises(FileNotFoundError, match=REFERENCE_EXPORT) as err:
         api.load_checkpoint(str(orbax), device="cpu")
+    assert EXPORT_RECIPE in str(err.value)
+    assert "reference_style_state_dict" in EXPORT_RECIPE

@@ -346,7 +346,9 @@ def test_graft_entry_dryrun_over_two_ranks(capfd):
     from yourmt3_tpu_torch.graft_entry import dryrun_multichip
     dryrun_multichip(WORLD, timeout_s=300.0)
     out = capfd.readouterr().out
-    for what in ("t5_tiny data=2 ok", "perceiver_tf_mc13_moe data=2 ok",
+    for what in ("t5_tiny mesh=(data=2, model=1) ok", "t5_tiny mesh=(data=1, model=2) ok",
+                 "perceiver_tf_mc13_moe mesh=(data=2, model=1) ok",
+                 "perceiver_tf_mc13_moe mesh=(data=1, model=2) ok",
                  "chunk_parallel data=2 ok"):
         assert what in out, out
 

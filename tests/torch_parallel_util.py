@@ -1,4 +1,4 @@
-"""Process groups for the port's data-parallel tests: `run_ranks` spawns
+"""Process groups for the port's data- and tensor-parallel tests: `run_ranks` spawns
 `world` processes on the CPU that join one gloo group through a file://
 rendezvous under the test's tmp_path and run one of the jobs below
 (`module_job` runs them all in one group); the join has a timeout of its
@@ -23,7 +23,7 @@ def run_ranks(job, world: int, tmp, *args, timeout: float = JOIN_TIMEOUT_S) -> N
     (mesh.spawn_ranks); raise what a rank raised, or TimeoutError after
     `timeout` seconds."""
     from yourmt3_tpu_torch.parallel import mesh
-    rendezvous = os.path.join(str(tmp), f"rendezvous_{job.__name__}")
+    rendezvous = os.path.join(str(tmp), f"rendezvous_{job.__name__}_{world}")
     mesh.spawn_ranks(job, world, f"file://{rendezvous}", timeout_s=timeout,
                      args=(str(tmp),) + args)
 
@@ -109,3 +109,89 @@ def chunk_job(rank, world, tmp):
         pickle.dump(dict(notes=notes_key(notes), errors=dataclasses.asdict(errs),
                          empty=empty, metrics=metrics, refused=refused,
                          replicated=replicated), f)
+
+
+def tp_job(rank, world, tmp, n_model, names):
+    """Tensor-parallel training on a mesh of (world / n_model, n_model):
+    for each case tmp/<name>.pt (weights, global batches, optimizer and
+    model options) the parameters are placed with mesh.shard_params and
+    trained by make_train_step over the mesh; every rank gathers the
+    weights and writes the checkpoint tmp/<name>_tp<n_data>x<n_model>
+    (rank 0 writes), and rank 0 its metrics and gathered weights to
+    tmp/<name>_tp<n_data>x<n_model>.pt. Each data row's ranks seed their
+    generator with the row, so they draw the same masks. An all-gather into
+    one tensor (which gloo on CUDA tensors does not carry) raises here."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from yourmt3_tpu_torch.parallel import mesh
+    from yourmt3_tpu_torch.train.checkpoint import save_bundle
+
+    def refuse(*args, **kwargs):  # gloo cannot carry it on CUDA tensors
+        raise RuntimeError("the tensor-parallel step issued an all-gather into "
+                           "one tensor")
+    dist.all_gather_into_tensor = funcol.all_gather_tensor = refuse
+    n_data = world // n_model
+    m = mesh.make_mesh(n_data, n_model, device="cpu")
+    for name in names:
+        spec = torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=False)
+        b = tp_bundle(spec)
+        mesh.shard_params(m, b.model)
+        metrics, weights, _ = tp_steps(b, spec, m)
+        tag = f"{name}_tp{n_data}x{n_model}"
+        save_bundle(os.path.join(tmp, tag), b, step=len(spec["batches"]))
+        if rank == 0:
+            torch.save(dict(metrics=metrics, weights=weights), os.path.join(tmp, f"{tag}.pt"))
+
+
+def tp_bundle(spec):
+    """The port's fp32 bundle of a tensor-parallel case, with its weights
+    (spec's state dict, or init_model's seed-0 weights where it is None;
+    spec's overrides may set the dropout rate; `fp32_projection` builds
+    the group projection in fp32 instead of bf16)."""
+    from yourmt3_tpu_torch.api import init_model
+    from yourmt3_tpu_torch.config.audio import AudioConfig
+    from yourmt3_tpu_torch.models import projection
+    bf16 = projection.BF16
+    if spec.get("fp32_projection"):
+        projection.BF16 = torch.float32
+    try:
+        b = init_model(spec["preset"], spec["task"], audio_cfg=AudioConfig(**SMALL),
+                       device="cpu", **dict(FP32, **spec["overrides"]))
+    finally:
+        projection.BF16 = bf16
+    if spec["state_dict"] is not None:
+        b.model.load_state_dict(spec["state_dict"], strict=True)
+    return b
+
+
+def tp_steps(bundle, spec, group=None):
+    """spec's steps through make_train_step over `group` (None: one
+    process); → (metrics by step, the whole weights on the CPU after each
+    step, and in one process the gradients the optimizer was fed at each
+    step)."""
+    from yourmt3_tpu_torch.ops.specaugment import make_augment_fn
+    from yourmt3_tpu_torch.parallel import mesh
+    from yourmt3_tpu_torch.train.checkpoint import _to_cpu
+    from yourmt3_tpu_torch.train.optim import GradientTransformation, make_optimizer
+    from yourmt3_tpu_torch.train.train_step import create_train_state, make_train_step
+    tx = make_optimizer(spec["optimizer"], spec["lr"], "constant", 1, len(spec["batches"]))
+    grads = []
+    if group is None:
+        def update(g, opt_state, params=None, inner=tx.update):
+            grads.append({k: v.clone() for k, v in g.items()})
+            return inner(g, opt_state, params)
+        tx = GradientTransformation(tx.init, update)
+    step = make_train_step(bundle.model, bundle.frontend, tx, group=group,
+                           augment_fn=make_augment_fn() if spec["spec_augment"] else None)
+    state = create_train_state(bundle.model, tx)
+    gen = torch.Generator().manual_seed(mesh.rank(group) if group is not None else 0)
+    metrics, weights = [], []
+    for batch in spec["batches"]:
+        if group is not None:
+            batch = mesh.shard_batch(batch, group)
+        state, out = step(state, batch, gen)
+        metrics.append({k: float(v) for k, v in out.items()})
+        # copies: on the CPU the gathered state dict shares the parameters'
+        # storage, which the next step updates in place
+        weights.append({k: v.clone() for k, v in _to_cpu(bundle.model.state_dict()).items()})
+    return metrics, weights, grads

@@ -5,11 +5,12 @@ run (the counterparts of the repository's `__graft_entry__.py`).
 
 `entry()` gives the flagship's teacher-forced forward step at full width.
 `dryrun_multichip(n)` starts n gloo processes on the CPU; each runs one
-DistributedDataParallel train step of t5_tiny and of a tiny MoE flagship
-on its shard of a global batch, then a song's chunk-parallel decode over
-the n ranks, which must give the notes and errors of the decode on one
-rank. The tensor-parallel layouts of the reference's dry run are not
-ported.
+train step of t5_tiny and of a tiny MoE flagship on a mesh of (data=n,
+model=1) (DistributedDataParallel on its shard of a global batch) and,
+when n is even, on (data=n/2, model=2) (the parameters split over the
+model axis, Megatron-style), as the reference's dry run does; then a
+song's chunk-parallel decode over the n ranks, which must give the notes
+and errors of the decode on one rank.
 """
 
 from __future__ import annotations
@@ -71,24 +72,33 @@ def _dryrun_rank(rank: int, world: int) -> None:
 
     group = mesh.data_group()
     ac = AudioConfig(**DRYRUN_AUDIO)
+    layouts = [(world, 1)] + ([(world // 2, 2)] if world % 2 == 0 else [])
+    meshes = [mesh.make_mesh(n_data, n_model, device="cpu")
+              for n_data, n_model in layouts]
     rng = np.random.default_rng(0)  # the same global batch on every rank
     for preset, task, overrides in DRYRUN_MODELS:
-        bundle = init_model(preset, task, audio_cfg=ac, device="cpu", **overrides)
-        tx = make_optimizer("adamw", 1e-3, "cosine", warmup_steps=10,
-                            total_steps=100)
-        step = make_train_step(bundle.model, bundle.frontend, tx, group=group)
         B = 2 * world
-        batch = {"audio": rng.standard_normal((B, ac.input_frames)).astype(
-                     np.float32) * 0.1,
-                 "labels": rng.integers(3, bundle.cfg.vocab_size,
-                                        (B, bundle.cfg.num_channels, 32))}
-        _, metrics = step(create_train_state(bundle.model, tx),
-                          mesh.shard_batch(batch, group), None)
-        loss = float(metrics["loss"])
-        assert np.isfinite(loss), f"non-finite loss {loss}"
-        if rank == 0:
-            print(f"dryrun_multichip {preset} data={world} ok: loss={loss:.4f}",
-                  flush=True)
+        batch = None
+        for (n_data, n_model), m in zip(layouts, meshes):
+            bundle = init_model(preset, task, audio_cfg=ac, device="cpu", **overrides)
+            if batch is None:
+                batch = {"audio": rng.standard_normal((B, ac.input_frames)).astype(
+                             np.float32) * 0.1,
+                         "labels": rng.integers(3, bundle.cfg.vocab_size,
+                                                (B, bundle.cfg.num_channels, 32))}
+            mesh.shard_params(m, bundle.model)
+            tx = make_optimizer("adamw", 1e-3, "cosine", warmup_steps=10,
+                                total_steps=100)
+            step = make_train_step(bundle.model, bundle.frontend, tx, group=m)
+            # the ranks of one data row draw the same dropout masks
+            gen = torch.Generator().manual_seed(mesh.rank(m))
+            _, metrics = step(create_train_state(bundle.model, tx),
+                              mesh.shard_batch(batch, m), gen)
+            loss = float(metrics["loss"])
+            assert np.isfinite(loss), f"non-finite loss {loss}"
+            if rank == 0:
+                print(f"dryrun_multichip {preset} mesh=(data={n_data}, "
+                      f"model={n_model}) ok: loss={loss:.4f}", flush=True)
 
     bundle = init_model("t5_tiny", "mt3_full_plus", audio_cfg=ac, device="cpu")
     song = (rng.standard_normal(int(ac.sample_rate * 2.6)) * 0.1).astype(np.float32)
@@ -108,9 +118,9 @@ def _dryrun_rank(rank: int, world: int) -> None:
 
 
 def dryrun_multichip(n_devices: int, timeout_s: float = 600.0) -> None:
-    """One DDP train step per dry-run model and the chunk-parallel
-    equivalence check over `n_devices` gloo processes on the CPU; raises
-    what a rank raised, or TimeoutError."""
+    """One train step per dry-run model and mesh layout, and the
+    chunk-parallel equivalence check, over `n_devices` gloo processes on
+    the CPU; raises what a rank raised, or TimeoutError."""
     from .parallel import mesh
     with tempfile.TemporaryDirectory() as tmp:
         mesh.spawn_ranks(_dryrun_rank, n_devices,

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.model import ModelConfig
+from ..parallel.tensor_parallel import copy_to
 from .layers import (DTYPES, DepthwiseConv1d, Dropout, MultiHeadAttention,
                      QuantDense, RelativePositionBias, RMSNorm,
                      sinusoidal_positions)
@@ -59,7 +60,14 @@ class ConformerFFN(nn.Module):
         self.wo = QuantDense(d_ff, d_model, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wo(self.dropout(F.silu(self.wi(self.norm(x)))))
+        # sharded over the model axis, the hidden stays this rank's d_ff slice
+        tp = self.wo.tp
+        lf = tp is not None
+        x = self.norm(x)
+        if lf:
+            x = copy_to(x, tp)
+        h = F.silu(self.wi(x, local_features=lf))
+        return self.wo(self.dropout(h, tp), local_features=lf)
 
 
 class ConformerBlock(nn.Module):

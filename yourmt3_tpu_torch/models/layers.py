@@ -10,6 +10,13 @@ Conventions held against the JAX reference:
 
 Parameter names follow the reference checkpoint naming (HF T5 style), so
 `weights.state_dict_from_jax` loads with `strict=True`.
+
+Tensor parallelism (parallel/mesh.shard_params) sets `tp` on the layers
+whose weights it shards over the model axis; with `tp` None (the default)
+a layer is the one-process layer. A sharded layer's plain `forward` still
+maps whole inputs to whole outputs (parallel/tensor_parallel.py), so any
+caller stays right; the attention and FF modules keep the heads and the
+FF hidden local between their layers instead.
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.tensor_parallel import (copy_to, gather_from, local, reduce_from,
+                                        scatter_to)
 
 NEG_INF = -1e9
 
@@ -154,7 +164,15 @@ class QuantDense(nn.Module):
     `weight_scale`. The int8 product is rounded to `dtype`, then scaled in
     fp32 and rounded again, as the reference does. The side-cars are
     non-persistent buffers recomputed from the master whenever a state
-    dict is loaded (`reset_parameters` callers call `requantize`)."""
+    dict is loaded (`reset_parameters` callers call `requantize`).
+
+    Sharded over the model axis, `tp` is the axis and `tp_style` "column"
+    (output features split) or "row" (input features split);
+    `local_features=True` then takes (row) or gives (column) this rank's
+    slice of the features instead of the whole. A column layer with
+    local features takes an input the calling block has passed through
+    `copy_to` once for all its column layers, so the input's gradient is
+    summed over the axis once per block."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype, device=None):
@@ -163,6 +181,8 @@ class QuantDense(nn.Module):
             torch.empty(out_features, in_features, device=device))
         self.dtype = dtype
         self.weight_quant = "none"
+        self.tp = None
+        self.tp_style = None
 
     def set_weight_quant(self, mode: str) -> None:
         self.weight_quant = mode
@@ -187,7 +207,17 @@ class QuantDense(nn.Module):
         if self.weight_quant != "none":
             self.requantize()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, local_features: bool = False) -> torch.Tensor:
+        if self.tp is not None:
+            w = local(self.weight).to(self.dtype)
+            if self.tp_style == "column":
+                if local_features:
+                    return F.linear(x.to(self.dtype), w)
+                y = F.linear(copy_to(x, self.tp).to(self.dtype), w)
+                return gather_from(y, self.tp)
+            if not local_features:
+                x = scatter_to(x, self.tp)
+            return reduce_from(F.linear(x.to(self.dtype), w), self.tp)
         if self.weight_quant == "none":
             return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
         y = F.linear(x.to(self.dtype), self.weight_q.to(self.dtype))
@@ -244,41 +274,70 @@ class MultiHeadAttention(nn.Module):
         b, h, t, d = x.shape
         return x.transpose(1, 2).reshape(b, t, h * d)
 
-    def group_queries(self, q: torch.Tensor) -> torch.Tensor:
+    def group_queries(self, q: torch.Tensor,
+                      kv_heads: Optional[int] = None) -> torch.Tensor:
         """(B, H, T, dk) → (B, Hkv, G·T, dk)."""
         b, h, t, d = q.shape
-        return q.reshape(b, self.kv_heads, (h // self.kv_heads) * t, d)
+        kvh = kv_heads or self.kv_heads
+        return q.reshape(b, kvh, (h // kvh) * t, d)
 
-    def ungroup_heads(self, x: torch.Tensor, t: int) -> torch.Tensor:
-        return x.reshape(x.shape[0], self.num_heads, t, x.shape[-1])
+    def ungroup_heads(self, x: torch.Tensor, t: int,
+                      heads: Optional[int] = None) -> torch.Tensor:
+        return x.reshape(x.shape[0], heads or self.num_heads, t, x.shape[-1])
 
-    def group_bias(self, bias: Optional[torch.Tensor],
-                   t: int) -> Optional[torch.Tensor]:
+    def group_bias(self, bias: Optional[torch.Tensor], t: int,
+                   heads: Optional[int] = None,
+                   kv_heads: Optional[int] = None) -> Optional[torch.Tensor]:
         if bias is None:
             return None
+        h, kvh = heads or self.num_heads, kv_heads or self.kv_heads
         if bias.shape[1] == 1:
-            bias = bias.expand(bias.shape[0], self.num_heads, *bias.shape[2:])
-        g = self.num_heads // self.kv_heads
-        return bias.reshape(bias.shape[0], self.kv_heads, g * t, bias.shape[-1])
+            bias = bias.expand(bias.shape[0], h, *bias.shape[2:])
+        return bias.reshape(bias.shape[0], kvh, (h // kvh) * t, bias.shape[-1])
 
     def project_kv(self, x_kv: torch.Tensor):
         return (self.split(self.k(x_kv), self.kv_heads),
                 self.split(self.v(x_kv), self.kv_heads))
 
+    def local_heads(self):
+        """The model axis when every projection is sharded on whole heads
+        (q/k/v column-, o row-parallel, the axis dividing both head
+        counts), else None: then each sharded projection gathers and
+        scatters whole features, and every rank attends with all heads."""
+        tp = self.q.tp
+        if (tp is None or any(m.tp is None for m in (self.k, self.v, self.o))
+                or self.num_heads % tp.size or self.kv_heads % tp.size):
+            return None
+        return tp
+
     def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        q = self.split(self.q(x_q), self.num_heads)
-        k, v = self.project_kv(x_kv)
+        tp = self.local_heads()
+        if tp is None:
+            h, kvh = self.num_heads, self.kv_heads
+            q, k, v = self.q(x_q), self.k(x_kv), self.v(x_kv)
+        else:  # this rank's heads, and their rows of the bias
+            h, kvh = self.num_heads // tp.size, self.kv_heads // tp.size
+            if x_kv is x_q:  # self-attention: one input for q, k and v
+                x_q = x_kv = copy_to(x_q, tp)
+            else:
+                x_q, x_kv = copy_to(x_q, tp), copy_to(x_kv, tp)
+            q = self.q(x_q, local_features=True)
+            k = self.k(x_kv, local_features=True)
+            v = self.v(x_kv, local_features=True)
+            if bias is not None and bias.shape[1] > 1:
+                bias = scatter_to(bias, tp, dim=1)
+        q, k, v = self.split(q, h), self.split(k, kvh), self.split(v, kvh)
         if self.use_rope:
             q, k = rope_rotate(q), rope_rotate(k)
-        if self.kv_heads != self.num_heads:
+        if kvh != h:
             t = q.shape[2]
-            out = dot_product_attention(self.group_queries(q), k, v,
-                                        self.group_bias(bias, t))
-            out = self.ungroup_heads(out, t)
+            out = dot_product_attention(self.group_queries(q, kvh), k, v,
+                                        self.group_bias(bias, t, h, kvh))
+            out = self.ungroup_heads(out, t, h)
         else:
             out = dot_product_attention(q, k, v, bias)
-        return self.o(self.merge(out))
+        return self.o(self.merge(out), local_features=tp is not None)
 
 
 def rope_rotate(x: torch.Tensor, base: float = 10000.0) -> torch.Tensor:
@@ -332,21 +391,26 @@ class Dropout(nn.Module):
     `deterministic=True`), or at rate 0, it is the identity. `generator`
     is a torch.Generator on the activations' device, set for the whole
     model by `YMT3.set_dropout_generator`; None draws from the device's
-    default generator."""
+    default generator. On an activation whose last axis is this rank's
+    slice over the model axis `tp`, the mask is this rank's slice of the
+    whole mask, drawn whole (so every rank's generator stays in step, and
+    the masks are those of one process)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp=None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
         if keep == 0.0:
             return torch.zeros_like(x)
-        mask = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep
+        shape = x.shape if tp is None else (*x.shape[:-1], x.shape[-1] * tp.size)
+        mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
+        if tp is not None:
+            mask = mask.narrow(-1, tp.rank * x.shape[-1], x.shape[-1])
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 
@@ -374,11 +438,17 @@ class FeedForward(nn.Module):
                 fan_in_normal_(lin.weight, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # sharded over the model axis, the hidden stays this rank's d_ff slice
+        tp = self.wo.tp
+        lf = tp is not None
+        if lf:
+            x = copy_to(x, tp)
         if self.gated:
-            y = self.act(self.wi_0(x)) * self.wi_1(x)
+            y = (self.act(self.wi_0(x, local_features=lf))
+                 * self.wi_1(x, local_features=lf))
         else:
-            y = self.act(self.wi(x))
-        return self.wo(self.dropout(y))
+            y = self.act(self.wi(x, local_features=lf))
+        return self.wo(self.dropout(y, tp), local_features=lf)
 
 
 class MoEFeedForward(nn.Module):
@@ -393,7 +463,11 @@ class MoEFeedForward(nn.Module):
     `experts_wo` (E, ff, d), with `act` between them; the gated sum is
     cast to the compute dtype. No dropout. The weights are plain
     parameters, not `QuantDense`, so decoder weight quantization leaves
-    them in fp32, as in the reference."""
+    them in fp32, as in the reference.
+
+    Sharded over the model axis (`tp` set), a rank holds E/n experts: it
+    runs them on every token, weighs them with its columns of the gate
+    (computed whole on every rank) and the ranks' sums add up."""
 
     def __init__(self, num_experts: int, d_model: int, d_ff: int,
                  dtype: torch.dtype, top_k: int = 2, act: str = "gelu",
@@ -408,6 +482,7 @@ class MoEFeedForward(nn.Module):
         self.top_k = top_k
         self.act = ACTIVATIONS[act]
         self.dtype = dtype
+        self.tp = None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         # flax: the router's lecun normal; for the stacked experts
@@ -428,9 +503,15 @@ class MoEFeedForward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.to(torch.float32)
         gate, _ = self.gate(x32)
-        h = self.act(torch.einsum("...d,edf->...ef", x32, self.experts_wi))
-        y = torch.einsum("...ef,efd->...ed", h, self.experts_wo)
-        return torch.einsum("...ed,...e->...d", y, gate).to(self.dtype)
+        xe = x32
+        if self.tp is not None:
+            xe, gate = copy_to(x32, self.tp), scatter_to(gate, self.tp)
+        h = self.act(torch.einsum("...d,edf->...ef", xe, local(self.experts_wi)))
+        y = torch.einsum("...ef,efd->...ed", h, local(self.experts_wo))
+        out = torch.einsum("...ed,...e->...d", y, gate)
+        if self.tp is not None:
+            out = reduce_from(out, self.tp)
+        return out.to(self.dtype)
 
 
 class DepthwiseConv1d(nn.Module):

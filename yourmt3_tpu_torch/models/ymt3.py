@@ -14,11 +14,13 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config.model import ModelConfig
 from ..ops.decode_attention import empty_paged_cache, empty_paged_scales
 from ..ops.weight_quant import quantize_decoder_weights
+from ..parallel.tensor_parallel import gather_from, local
 from ..tokens.codec import PAD_ID
 from .conformer import ConformerEncoder
 from .conv_block import Conv2dSame
@@ -48,6 +50,7 @@ class YMT3(nn.Module):
         self.multi = cfg.decoder_type == "multi-t5" or cfg.num_channels > 1
         self.decoder = (MultiChannelT5Decoder if self.multi else T5Decoder)(cfg)
         self.lm_head = QuantDense(cfg.d_model, cfg.vocab_size, compute_dtype(cfg))
+        self.embed_tp = None  # the model axis when `shared` is split on d_model
         if cfg.weight_quant != "none":
             quantize_decoder_weights(self, cfg.weight_quant)
 
@@ -87,6 +90,9 @@ class YMT3(nn.Module):
         return compute_dtype(self.cfg)
 
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.embed_tp is not None:  # this rank's d_model columns, gathered
+            return gather_from(F.embedding(ids, local(self.shared.weight)),
+                               self.embed_tp).to(self.dtype)
         return self.shared(ids).to(self.dtype)
 
     # ---- encoding ------------------------------------------------------

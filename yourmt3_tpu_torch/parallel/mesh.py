@@ -1,5 +1,5 @@
-"""The data-parallel process group: the port's counterpart of the JAX
-package's device mesh (`yourmt3_tpu/parallel/mesh.py`).
+"""Process groups and the device mesh: the port's counterpart of the JAX
+package's `yourmt3_tpu/parallel/mesh.py`.
 
 JAX shards a global batch over the `data` axis of one mesh and lets XLA
 insert the collectives. The port runs one process per rank instead, as
@@ -11,7 +11,12 @@ two ranks on one card need gloo, NCCL refuses them). Ranks meet through
 an explicit `init_method`: `env://` under torchrun, a `file://` path in
 tests, so that no two runs race for a TCP port.
 
-The tensor-parallel layout of the `model` axis is not ported.
+The `model` axis: `make_mesh` lays the default group out as a 2-D
+DeviceMesh ("data", "model"), and `shard_params` places a model's
+parameters on its `model` axis Megatron-style, as the JAX package's
+`_param_spec`/`shard_params` do (the layers' collectives:
+parallel/tensor_parallel.py). The data functions below take such a mesh
+where they take a group, and then act on its `data` axis.
 """
 
 from __future__ import annotations
@@ -24,6 +29,16 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from .tensor_parallel import ModelAxis
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+# the JAX package's Megatron layout, on the port's (out, in) weights:
+# column-parallel layers split their output features (Shard(0)),
+# row-parallel ones their input features (Shard(1))
+COLUMN_PARALLEL = ("q", "k", "v", "wi", "wi_0", "wi_1", "lm_head", "pointwise_in")
+ROW_PARALLEL = ("o", "wo", "pointwise_out")
 
 
 def init_data_parallel(rank: Optional[int] = None, world_size: Optional[int] = None,
@@ -104,10 +119,11 @@ def _spawned_rank(rank, fn, world, init_method, backend, device, timeout_s, args
 
 
 def data_group(group=None):
-    """`group`, else the default group when one is initialised, else None
-    (one process, no collectives)."""
+    """`group` (a mesh's `data` axis for a DeviceMesh), else the default
+    group when one is initialised, else None (one process, no
+    collectives)."""
     if group is not None:
-        return group
+        return group.get_group(DATA_AXIS) if is_mesh(group) else group
     return dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
 
 
@@ -160,3 +176,90 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts)
+
+
+# ---------------------------------------------------------------------------
+# the model axis: tensor-parallel parameter layout
+# ---------------------------------------------------------------------------
+
+def is_mesh(x) -> bool:
+    from torch.distributed.device_mesh import DeviceMesh
+    return isinstance(x, DeviceMesh)
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None):
+    """→ a DeviceMesh of shape (n_data, n_model) with dims ("data",
+    "model") over the default group (n_data defaults to world / n_model).
+    Ranks r·n_model ... r·n_model + n_model - 1 form data row r, as the
+    JAX package's reshape of its device list does. The device type is
+    that of `device`: CUDA by default, "cpu" when asked."""
+    from torch.distributed.device_mesh import init_device_mesh
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_data is None:
+        n_data = world // n_model
+    if n_data * n_model != world:
+        raise ValueError(f"a mesh of data={n_data} x model={n_model} needs "
+                         f"{n_data * n_model} ranks, the group has {world}")
+    dev = torch.device(device if device is not None else "cuda")
+    return init_device_mesh(dev.type, (n_data, n_model),
+                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+
+
+def param_spec(name: str, param: torch.Tensor, n_model: int = 1):
+    """The placement of parameter `name` on the model axis: the port's
+    copy of the JAX package's `_param_spec`, on torch's (out, in) layout.
+    Column-parallel weights Shard(0), row-parallel ones Shard(1), the
+    token embedding (vocab, d) Shard(1) on d_model, the stacked expert
+    tensors Shard(0) on the expert axis; everything else, and every tensor
+    whose sharded axis `n_model` does not divide, Replicate()."""
+    from torch.distributed.tensor import Replicate, Shard
+    parts = name.split(".")
+    dim = None
+    if param.ndim >= 2:
+        if parts[-1] == "weight" and len(parts) > 1 and parts[-2] in COLUMN_PARALLEL:
+            dim = 0
+        elif parts[-1] == "weight" and len(parts) > 1 and parts[-2] in ROW_PARALLEL:
+            dim = 1
+        elif name == "shared.weight":
+            dim = 1
+        elif parts[-1] in ("experts_wi", "experts_wo"):
+            dim = 0
+    if dim is None or param.shape[dim] % n_model:
+        return Replicate()
+    return Shard(dim)
+
+
+def shard_params(mesh, model: torch.nn.Module) -> torch.nn.Module:
+    """Place `model`'s parameters on the mesh's model axis, in place: rank
+    0's weights are first broadcast over the default group, then each
+    parameter that `param_spec` shards becomes a DTensor holding this
+    rank's slice, and the layers that own one take the axis (their
+    collectives). With a model axis of 1 this is plain replication.
+    → the model."""
+    from torch.distributed.tensor import DTensor, Shard
+    from ..models.layers import MoEFeedForward, QuantDense
+    replicate(model, dist.group.WORLD if dist.is_initialized() else None)
+    sub = mesh[MODEL_AXIS]
+    n = sub.size()
+    if n == 1:
+        return model
+    if model.cfg.weight_quant != "none":
+        raise ValueError("shard_params trains the fp32 masters: build the model "
+                         "with weight_quant='none'")
+    axis = ModelAxis(sub.get_group(), sub.get_local_rank(), n)
+    for mod_name, mod in model.named_modules():
+        for pname, p in list(mod.named_parameters(recurse=False)):
+            spec = param_spec(f"{mod_name}.{pname}" if mod_name else pname, p, n)
+            if not isinstance(spec, Shard):
+                continue
+            shard = p.detach().chunk(n, dim=spec.dim)[axis.rank].contiguous()
+            setattr(mod, pname, torch.nn.Parameter(DTensor.from_local(
+                shard, sub, [spec], run_check=False, shape=p.shape,
+                stride=p.stride())))
+            if isinstance(mod, QuantDense):
+                mod.tp, mod.tp_style = axis, ("column", "row")[spec.dim]
+            elif isinstance(mod, MoEFeedForward):
+                mod.tp = axis
+            else:  # the token embedding, split on d_model
+                model.embed_tp = axis
+    return model

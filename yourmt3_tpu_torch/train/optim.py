@@ -24,6 +24,13 @@ What follows optax exactly, and where torch's own classes differ:
 The factored statistics are symmetric in the two factored axes, so a
 torch (out, in) weight and the reference's (in, out) kernel get the same
 updates.
+
+Parameters sharded over the model axis (parallel/mesh.shard_params) come
+as DTensors, and so do their gradients: each rank updates its shard, the
+state takes the parameter's placement, and every sum or mean over a
+tensor or over all of them (the global norm, the block RMS, the factored
+statistics, D-Adaptation's sums) counts each element once, through an
+all-reduce. No step gathers a shard.
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.tensor_parallel import local
 
 Params = Dict[str, torch.Tensor]
 Schedule = Callable[[int], float]
@@ -73,8 +83,27 @@ def make_schedule(name: str, base_lr: float, warmup_steps: int = 1000,
 # transformations
 # ---------------------------------------------------------------------------
 
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A reduction's value as a plain tensor: a DTensor's partial sums are
+    all-reduced over the model axis."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of every element (of a DTensor: of the whole tensor, as
+    a sum all-reduced over the model axis, over the whole count)."""
+    if hasattr(x, "full_tensor"):
+        return _whole(torch.sum(x)) / x.numel()
+    return torch.mean(x)
+
+
+def _total(terms) -> torch.Tensor:
+    """The sum of per-tensor sums (0-dim tensors, DTensors or not)."""
+    return sum(_whole(t) for t in terms)
+
+
 def global_norm(tree: Params) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(t * t) for t in tree.values()))
+    return torch.sqrt(_total(torch.sum(t * t) for t in tree.values()))
 
 
 def _stateless(fn) -> GradientTransformation:
@@ -93,7 +122,8 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
 
 def clip_by_block_rms(threshold: float) -> GradientTransformation:
     def clip(updates, params):
-        return {k: u / torch.clamp(torch.sqrt(torch.mean(u * u)) / threshold, min=1.0)
+        return {k: u / torch.clamp(torch.sqrt(_mean(u * u)) / threshold,
+                                   min=1.0)
                 for k, u in updates.items()}
     return _stateless(clip)
 
@@ -105,7 +135,7 @@ def scale(factor: float) -> GradientTransformation:
 
 def scale_by_param_block_rms(min_scale: float = 1e-3) -> GradientTransformation:
     def scale_(updates, params):
-        return {k: u * torch.clamp(torch.sqrt(torch.mean(params[k] * params[k])),
+        return {k: u * torch.clamp(torch.sqrt(_mean(params[k] * params[k])),
                                    min=min_scale)
                 for k, u in updates.items()}
     return _stateless(scale_)
@@ -155,8 +185,49 @@ def _factored_dims(shape, min_dim: int) -> Optional[Tuple[int, int]]:
     return order[-2], order[-1]
 
 
+def _shard_dim(t: torch.Tensor) -> Optional[int]:
+    """The axis of `t` split over the model axis, or None."""
+    from torch.distributed.tensor import Shard
+    for p in getattr(t, "placements", ()):
+        if isinstance(p, Shard):
+            return p.dim
+    return None
+
+
+def _mean_over(x: torch.Tensor, dim: int, like: torch.Tensor,
+               split: Optional[int]) -> torch.Tensor:
+    """The mean over axis `dim` of the whole tensor whose local shard is
+    `x` (split on axis `split` over like's model axis, or whole)."""
+    if split != dim:
+        return x.mean(dim=dim)
+    s = x.sum(dim=dim)
+    dist.all_reduce(s, group=like.device_mesh.get_group(0))
+    return s / (x.shape[dim] * like.device_mesh.size(0))
+
+
+def _placed(x: torch.Tensor, like: torch.Tensor, split: Optional[int]):
+    """`x` (a local tensor) as a DTensor on like's mesh, split on axis
+    `split` or replicated; `x` itself when `like` is not a DTensor."""
+    if not hasattr(like, "device_mesh"):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    return DTensor.from_local(x, like.device_mesh,
+                              [Replicate() if split is None else Shard(split)],
+                              run_check=False)
+
+
+def _after_reduce(split: Optional[int], dim: int) -> Optional[int]:
+    """The split axis once axis `dim` is reduced away."""
+    if split is None or split == dim:
+        return None
+    return split - 1 if split > dim else split
+
+
 def scale_by_factored_rms(decay_rate: float = 0.8, min_dim_size_to_factor: int = 128,
                           epsilon: float = 1e-30) -> GradientTransformation:
+    """The factored statistics of a sharded parameter are computed on its
+    local shard: a mean over the split axis is all-reduced, and each
+    statistic stays split on the axis it keeps."""
     def init(params):
         state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
         for k, p in params.items():
@@ -165,8 +236,11 @@ def scale_by_factored_rms(decay_rate: float = 0.8, min_dim_size_to_factor: int =
                 state["v"][k] = torch.zeros_like(p)
             else:
                 d1, d0 = dims
-                state["v_row"][k] = torch.zeros_like(p.sum(dim=d0))
-                state["v_col"][k] = torch.zeros_like(p.sum(dim=d1))
+                split, pl = _shard_dim(p), local(p)
+                state["v_row"][k] = _placed(torch.zeros_like(pl.sum(dim=d0)), p,
+                                            _after_reduce(split, d0))
+                state["v_col"][k] = _placed(torch.zeros_like(pl.sum(dim=d1)), p,
+                                            _after_reduce(split, d1))
         return state
 
     def update(grads, state, params=None):
@@ -175,22 +249,30 @@ def scale_by_factored_rms(decay_rate: float = 0.8, min_dim_size_to_factor: int =
         new = {"count": state["count"] + 1, "v_row": {}, "v_col": {}, "v": {}}
         out = {}
         for k, g in grads.items():
-            g2 = g * g + epsilon
             dims = _factored_dims(g.shape, min_dim_size_to_factor)
             if dims is None:
+                g2 = g * g + epsilon
                 v = decay * state["v"][k] + (1.0 - decay) * g2
                 new["v"][k] = v
                 out[k] = g * v ** -0.5
                 continue
             d1, d0 = dims
-            v_row = decay * state["v_row"][k] + (1.0 - decay) * g2.mean(dim=d0)
-            v_col = decay * state["v_col"][k] + (1.0 - decay) * g2.mean(dim=d1)
-            new["v_row"][k], new["v_col"][k] = v_row, v_col
+            split, gl = _shard_dim(g), local(g)
+            g2 = gl * gl + epsilon
+            row_split, col_split = _after_reduce(split, d0), _after_reduce(split, d1)
+            v_row = (decay * local(state["v_row"][k])
+                     + (1.0 - decay) * _mean_over(g2, d0, g, split))
+            v_col = (decay * local(state["v_col"][k])
+                     + (1.0 - decay) * _mean_over(g2, d1, g, split))
+            new["v_row"][k] = _placed(v_row, g, row_split)
+            new["v_col"][k] = _placed(v_col, g, col_split)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+            row_col_mean = _mean_over(v_row, reduced_d1, g, row_split).unsqueeze(
+                reduced_d1)
             row_factor = (v_row / row_col_mean) ** -0.5
             col_factor = v_col ** -0.5
-            out[k] = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            out[k] = _placed(gl * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1),
+                             g, split)
         return out, new
     return GradientTransformation(init, update)
 
@@ -253,7 +335,7 @@ def dadapt_adamw(learning_rate: Schedule, betas: Tuple[float, float] = (0.9, 0.9
         one = torch.ones((), dtype=torch.float32, device=estim_lr.device)
         bc = torch.sqrt(1 - (one * b2) ** count) / (1 - (one * b1) ** count)
         dlr = estim_lr * learning_rate(state["count"]) * bc
-        numerator_acum = sum(
+        numerator_acum = _total(
             torch.sum(g * (state["grad_sum"][k] / (torch.sqrt(state["exp_avg_sq"][k]) + eps)))
             for k, g in grads.items())
         exp_avg = {k: b1 * state["exp_avg"][k] + (1 - b1) * dlr * g
@@ -262,7 +344,7 @@ def dadapt_adamw(learning_rate: Schedule, betas: Tuple[float, float] = (0.9, 0.9
                       for k, g in grads.items()}
         grad_sum = {k: sb2 * state["grad_sum"][k] + (1 - sb2) * dlr * g
                     for k, g in grads.items()}
-        grad_sum_l1 = sum(torch.sum(torch.abs(v)) for v in grad_sum.values())
+        grad_sum_l1 = _total(torch.sum(torch.abs(v)) for v in grad_sum.values())
         numerator_weighted = (sb2 * state["numerator_weighted"]
                               + (1 - sb2) * dlr * numerator_acum)
         d_estimate = numerator_weighted / ((1 - sb2) * grad_sum_l1)

@@ -5,7 +5,9 @@ so raw audio is what crosses from the host. The model's parameters are
 the fp32 master weights; `QuantDense` casts them to the compute dtype
 (bf16 for the presets) for each product, so the backward pass yields
 fp32 gradients. The optimizer (train/optim.py) turns them into updates
-that are added to the parameters in place.
+that are added to the parameters in place. With parameters sharded over
+a mesh's model axis (parallel/mesh.shard_params) the gradients, the
+updates and the optimizer state are the ranks' shards.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from torch.nn.parallel import DistributedDataParallel
 
 from ..models.ymt3 import YMT3, ce_loss, ce_sums, shift_right
 from ..ops.frontend import SpectrogramFrontend
+from ..parallel import mesh as pmesh
+from ..parallel.tensor_parallel import local
 from .optim import GradientTransformation, Params, global_norm
 
 
@@ -83,17 +87,40 @@ def make_train_step(model: YMT3, frontend: SpectrogramFrontend,
     metrics hold no grad_norm; on the k-th, grad_norm is the norm of the
     summed micro-gradients over k (their mean). `train_step.flush(state)`
     folds gradients still pending in `.grad` into the optimizer state
-    (before a checkpoint)."""
+    (before a checkpoint).
+
+    group may also be a 2-D DeviceMesh (parallel/mesh.make_mesh): the
+    batch is this rank's shard over the `data` axis and the gradients are
+    averaged over that axis alone. With a `model` axis above 1 (the
+    parameters placed by mesh.shard_params) that average is one
+    all-reduce of every gradient's local shard, not DDP, and the ranks of
+    one data row must pass generators in the same state: their dropout
+    and SpecAugment masks are then those of one process."""
     params = trainable_params(model)
     names = list(params)
     dev = model.shared.weight.device
+    tensor_parallel = (group is not None and pmesh.is_mesh(group)
+                       and group[pmesh.MODEL_AXIS].size() > 1)
+    group = pmesh.data_group(group) if group is not None else None
     world = 1 if group is None else dist.get_world_size(group)
     net = model
-    if group is not None:
+    if group is not None and not tensor_parallel:
         net = DistributedDataParallel(
             model, device_ids=[dev.index] if dev.type == "cuda" else None,
             process_group=group)
     accumulate = group is not None and grad_accum_steps > 1
+
+    def reduce_grads() -> None:
+        """DDP's average over the data axis, for sharded parameters: one
+        all-reduce of every gradient's local shard, flattened."""
+        if world == 1:
+            return
+        grads = [local(params[k].grad) for k in names if params[k].grad is not None]
+        flat = torch._utils._flatten_dense_tensors(grads)
+        dist.all_reduce(flat, group=group)
+        flat /= world
+        for g, r in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+            g.copy_(r)
 
     def take_grads() -> Params:
         out = {}
@@ -117,7 +144,7 @@ def make_train_step(model: YMT3, frontend: SpectrogramFrontend,
             if augment_fn is not None:
                 feats = augment_fn(gen, feats)
         applies = not accumulate or state.opt_state["mini_step"] == grad_accum_steps - 1
-        with contextlib.nullcontext() if applies else net.no_sync():
+        with contextlib.nullcontext() if applies or tensor_parallel else net.no_sync():
             logits = net(feats, shift_right(labels))
             nll, correct, count = ce_sums(logits, labels, label_smoothing)
             sums = [nll.detach(), correct, count]
@@ -138,6 +165,8 @@ def make_train_step(model: YMT3, frontend: SpectrogramFrontend,
             if not applies:
                 grads = {k: torch.zeros_like(params[k]) for k in names}
             else:
+                if tensor_parallel:
+                    reduce_grads()
                 grads = take_grads()
                 gnorm = global_norm(grads)
                 if accumulate:
@@ -161,7 +190,7 @@ def make_train_step(model: YMT3, frontend: SpectrogramFrontend,
             return state
         acc = state.opt_state["acc"]
         for k, g in take_grads().items():
-            dist.all_reduce(g, group=group)
+            dist.all_reduce(local(g), group=group)
             acc[k] += g / (world * n)
         return state
 
