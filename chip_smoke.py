@@ -45,7 +45,8 @@ Phases:
      loss must fall. Then a profiled window of 3 steps, a checkpoint
      restored with load_checkpoint(kv_quant="int8c4p",
      weight_quant="int8") that transcribes a 2 s song, and two steps of
-     cli.train at t5_small width;
+     cli.train at t5_small width whose batches two spawned producer
+     processes make (--num-workers 2);
   7. evaluation, slice 4, on phase 6's checkpoint in the same directory:
      a. a test split of synth_mc (2 tracks of 8 s, another seed) built by
         the port's build_synth_dataset;
@@ -93,11 +94,15 @@ Phases:
      path with every launch count set to 0 just before it and read just
      after:
      c. in an NCCL group of world 1: cli.test scores phase 7's split
-        chunk-parallel (8 segments per rank); the int4 kernel's launches
-        must equal 8 x the decode steps run and the metrics JSON must be
-        phase 7's; then transcribe_song_chunk_parallel decodes phase 3a's
-        song on t5_small's fast path (paged kernel, 8 x the steps) and
-        must give the one-device path's notes and errors;
+        chunk-parallel (8 segments per rank, then 2); the int4 kernel's
+        launches must equal 8 x the decode steps run and the metrics JSON
+        must be phase 7's; then transcribe_song_chunk_parallel decodes phase
+        3a's song on t5_small's fast path (paged kernel, 8 x the steps) and
+        must give the one-device path's notes and errors; then at unequal
+        shapes (2 segments per rank against the one-device batch of 8) the
+        same song, and an 8 s song on the random-weight flagship (int4
+        kernel): streams may part only where the one-device decode's top two
+        logits lie within MARGIN_ULPS bf16 ulps;
      a. in the same group: the full-width flagship through
         trainer.train(n_data_shards=1) under DDP, batch 16, fused log-mel
         frontend, 5 steps of phase 6's run (the kernel launches once per
@@ -105,9 +110,10 @@ Phases:
         agree within TOL_DDP1_LOSS_REL; steps/s and peak memory beside
         phase 6's;
      b. two gloo ranks on the one card (spawned processes) train t5_small
-        in fp32 on halves of global batches of 8 for 2 steps; the losses
-        and weights must equal one process's within TOL_DDP2_LOSS_REL and
-        TOL_DDP2_WEIGHT_REL.
+        in fp32 with dropout 0.1 and SpecAugment on halves of global batches
+        of 8 for 2 steps; the losses and weights must equal one process's
+        (the same masks: each rank keeps its rows of the global batch's)
+        within TOL_DDP2_LOSS_REL and TOL_DDP2_WEIGHT_REL.
  10. tensor parallel over the model axis and reference checkpoints, slice 7,
      each path with every launch count set to 0 just before it (in each
      rank) and read just after:
@@ -119,13 +125,25 @@ Phases:
         within the TOL_TP_* rules; steps/s of both, peak memory per rank,
         fused log-mel launches = steps in each rank;
      b. the full-width MoE flagship, experts sharded, on (data=2, model=2):
-        four ranks, 2 steps, dropout 0, no SpecAugment, held the same way;
+        four ranks, 2 steps, dropout 0.05 and SpecAugment, held the same way;
      c. 10a's checkpoint (written whole by the sharded ranks) restores in
         one process with the gathered weights and transcribes phase 3b's
         16 s song through api.transcribe and the int4 kernel;
      d. a reference-style .ckpt of a seeded full-width MoE flagship (experts
         unstacked) loads through import_checkpoint(require_complete=True)
         into a model of another seed, whose logits must equal the source's.
+ 11. the grouped-query flagships perceiver_tf_mc13_mqa and
+     perceiver_tf_mc13_gqa2 (decoder_kv_heads 1 and 2), slice 8, each with
+     every launch count set to 0 just before it and read just after (no
+     kernel launches: their caches are dense, as the JAX package's): at
+     full width in fp32, random weights from seed 0, 2 segments of the 16 s
+     song (L = 256) through transcribe_segments_array with the fast decode
+     settings of a 13-channel decode (dense int8 self cache) and the beam-2
+     repair: wall, audio-s/s and peak memory; encoder and memory against
+     the CPU within phase 8c's limits; the card's memory decoded on the
+     CPU, the card's greedy tokens parting from it only where the CPU's
+     top two logits lie within MARGIN_ULPS bf16 ulps; then 64 steps of the
+     caches none, int8c4 and int4 and of beam 2 on the card.
 
 Any failure raises: nothing is caught and nothing falls back. The last
 line is {"ok": true, "device": {...}}; the line before it lists each
@@ -1303,23 +1321,34 @@ def profile_train_steps(bundle, batch):
 
 
 def cli_train_steps(tmp):
-    """Two steps of `cli.train` at t5_small width on the smoke synth set."""
+    """Two steps of `cli.train` at t5_small width on the smoke synth set,
+    its batches made by two spawned producer processes under this process's
+    CUDA context (`--num-workers 2`); cli.train stops them when it ends."""
+    import multiprocessing as mp
     from yourmt3_tpu_torch.cli import train as cli_train
     from yourmt3_tpu_torch.train.checkpoint import restore_opt_state
     t0 = time.perf_counter()
     run = cli_train.main(["smoke", "-d", "synth_smoke", "-m", "t5_small",
                           "-b", "16", "-s", "2", "--warmup-steps", "1",
                           "--log-every", "1", "--ckpt-every", "2",
-                          "--num-workers", "1",
+                          "--num-workers", "2",
                           "--ckpt-dir", os.path.join(tmp, "cli_run")])
     wall = time.perf_counter() - t0
     with open(os.path.join(run, "smoke_log.jsonl")) as f:
         recs = [json.loads(line) for line in f]
-    log(f"cli.train t5_small, batch 16, 2 steps in {wall:.2f} s (incl. init "
-        f"and data): losses {[round(r['loss'], 4) for r in recs]}")
+    deadline = time.perf_counter() + 10.0
+    while mp.active_children() and time.perf_counter() < deadline:
+        time.sleep(0.1)
+    left = mp.active_children()
+    log(f"cli.train t5_small, batch 16, 2 producer processes, 2 steps in "
+        f"{wall:.2f} s (incl. init, the producers' start and data): losses "
+        f"{[round(r['loss'], 4) for r in recs]}; checkpoint at step "
+        f"{restore_opt_state(os.path.join(run, 'last'))['step']}; producers left "
+        f"running {len(left)}")
     assert [r["step"] for r in recs] == [1, 2]
     assert all(np.isfinite(r["loss"]) for r in recs)
     assert restore_opt_state(os.path.join(run, "last"))["step"] == 2
+    assert not left, left
 
 
 # ---------------------------------------------------------------------------
@@ -1412,11 +1441,13 @@ class Top2Recorder:
         return torch.stack(self.rows).float().cpu().numpy()
 
 
-def parting_streams(label, plain, early, top2):
+def parting_streams(label, plain, early, top2, names=("plain", "early exit")):
     """Streams whose early-exit ids differ from the plain decode's: each is
     printed with its first differing step and the plain decode's top-two
     logit margin there; → (identical streams, the widest margin in bf16
-    ulps)."""
+    ulps). `names` name the two decodes in the printout (another pair of
+    decodes of the same streams, the first the one whose margins top2
+    holds)."""
     a = plain.reshape(-1, plain.shape[-1]).cpu().numpy()
     b = early.reshape(-1, early.shape[-1]).cpu().numpy()
     worst = 0.0
@@ -1426,9 +1457,9 @@ def parting_streams(label, plain, early, top2):
         hi, lo = top2[j, s]
         ulps = (hi - lo) / bf16_ulp(hi)
         worst = max(worst, ulps)
-        log(f"  {label}: stream {s} parts at step {j}: plain {a[s, j]} vs early "
-            f"exit {b[s, j]}; plain top-two logits {hi:.6f} / {lo:.6f}, margin "
-            f"{ulps:.2f} bf16 ulps (limit {MARGIN_ULPS})")
+        log(f"  {label}: stream {s} parts at step {j}: {names[0]} {a[s, j]} vs "
+            f"{names[1]} {b[s, j]}; {names[0]} top-two logits {hi:.6f} / {lo:.6f}, "
+            f"margin {ulps:.2f} bf16 ulps (limit {MARGIN_ULPS})")
     return a.shape[0] - len(parted), worst
 
 
@@ -1771,7 +1802,6 @@ def conformer_path(tmp, smi):
 def options_card_vs_cpu(smi):
     """Phase 8c: each option of OPTIONS at full width in fp32, the card
     against the CPU on one seeded batch, the same weights."""
-    import torch
     from yourmt3_tpu_torch import api
     from yourmt3_tpu_torch.data.audio_io import slice_padded_array
 
@@ -1781,32 +1811,42 @@ def options_card_vs_cpu(smi):
         gpu = api.init_model(preset, task, **kw)
         cpu = api.init_model(preset, task, device="cpu", **kw)
         segs, _ = slice_padded_array(sine_song(16.0), gpu.audio_cfg.input_frames)
-        batch = np.ascontiguousarray(segs[:2], np.float32)
-        outs = []
-        with torch.no_grad():
-            for b in (gpu, cpu):
-                enc = b.model.encoder(b.frontend(torch.from_numpy(batch).to(b.device)))
-                outs.append((enc.cpu(), b.model.projection(enc).cpu()))
-        (enc_g, mem_g), (enc_c, mem_c) = outs
-        assert enc_g.dtype == torch.float32 and bool(torch.isfinite(enc_g).all())
-        assert mem_g.shape == mem_c.shape and mem_g.dtype == mem_c.dtype
-        err_enc = (enc_g - enc_c).abs().max().item()
-        a, c = mem_g.float().numpy(), mem_c.float().numpy()
-        if mem_g.dtype == torch.bfloat16:
-            mag = np.maximum(np.maximum(np.abs(a), np.abs(c)), 1.0)
-            ulps = (np.abs(a - c) / 2.0 ** (np.floor(np.log2(mag)) - 7)).max()
-            mem_msg = f"memory (bf16) max {ulps:.2f} ulps (tol {MEMORY_ULPS})"
-            ok = ulps <= MEMORY_ULPS
-        else:
-            err_mem = np.abs(a - c).max()
-            mem_msg = f"memory (fp32) max|diff| {err_mem:.2e} (tol {TOL_MODEL_FP32})"
-            ok = err_mem < TOL_MODEL_FP32
+        enc_msg = encoder_card_vs_cpu(gpu, cpu, np.ascontiguousarray(segs[:2], np.float32))
         log(f"[{smi}] phase 8c: {preset} {ov} fp32, 2 segments, card vs CPU: "
-            f"encoder {tuple(enc_g.shape)} max|diff| {err_enc:.2e} (tol "
-            f"{TOL_MODEL_FP32}); {mem_msg}; {time.perf_counter() - t0:.1f} s")
-        assert err_enc < TOL_MODEL_FP32, (preset, ov, err_enc)
-        assert ok, (preset, ov, mem_msg)
+            f"{enc_msg}; {time.perf_counter() - t0:.1f} s")
         del gpu, cpu
+
+
+def encoder_card_vs_cpu(gpu, cpu, batch):
+    """The encoder output (fp32) of `batch` on the card and on the CPU within
+    TOL_MODEL_FP32, the decoder memory within MEMORY_ULPS bf16 ulps (bf16) or
+    TOL_MODEL_FP32 (fp32); the two bundles hold the same weights. → the
+    printout."""
+    import torch
+    outs = []
+    with torch.no_grad():
+        for b in (gpu, cpu):
+            enc = b.model.encoder(b.frontend(torch.from_numpy(batch).to(b.device)))
+            outs.append((enc.cpu(), b.model.projection(enc).cpu()))
+    (enc_g, mem_g), (enc_c, mem_c) = outs
+    assert enc_g.dtype == torch.float32 and bool(torch.isfinite(enc_g).all())
+    assert mem_g.shape == mem_c.shape and mem_g.dtype == mem_c.dtype
+    err_enc = (enc_g - enc_c).abs().max().item()
+    a, c = mem_g.float().numpy(), mem_c.float().numpy()
+    if mem_g.dtype == torch.bfloat16:
+        mag = np.maximum(np.maximum(np.abs(a), np.abs(c)), 1.0)
+        ulps = (np.abs(a - c) / 2.0 ** (np.floor(np.log2(mag)) - 7)).max()
+        mem_msg = f"memory (bf16) max {ulps:.2f} ulps (tol {MEMORY_ULPS})"
+        ok = ulps <= MEMORY_ULPS
+    else:
+        err_mem = np.abs(a - c).max()
+        mem_msg = f"memory (fp32) max|diff| {err_mem:.2e} (tol {TOL_MODEL_FP32})"
+        ok = err_mem < TOL_MODEL_FP32
+    msg = (f"encoder {tuple(enc_g.shape)} max|diff| {err_enc:.2e} (tol "
+           f"{TOL_MODEL_FP32}); {mem_msg}")
+    assert err_enc < TOL_MODEL_FP32, msg
+    assert ok, msg
+    return msg
 
 
 # ---------------------------------------------------------------------------
@@ -1818,11 +1858,13 @@ DDP_STEPS = 5
 # all-reduce of one rank averages over 1, so the losses must be the same
 TOL_DDP1_LOSS_REL = 1e-6
 # 9b: two gloo ranks on the one card against one process, t5_small width in
-# fp32 (TF32 off), dropout 0, no SpecAugment, AdamW at 1e-4: the loss is
-# summed in another order; Adam turns a gradient at the rounding level into
-# a step of about ±lr, so each weight tensor is held by ||w2 - w1|| / ||w1||
+# fp32 (TF32 off), dropout DDP2_DROPOUT and SpecAugment (each rank draws the
+# global batch's masks and keeps its rows, so the masks are one process's),
+# AdamW at 1e-4: the loss is summed in another order; Adam turns a gradient
+# at the rounding level into a step of about ±lr, so each weight tensor is
+# held by ||w2 - w1|| / ||w1||
 TOL_DDP2_LOSS_REL, TOL_DDP2_WEIGHT_REL = 1e-5, 1e-4
-DDP2_BATCH, DDP2_STEPS = 8, 2
+DDP2_BATCH, DDP2_STEPS, DDP2_DROPOUT = 8, 2, 0.1
 RANK_TIMEOUT_S = 300.0
 
 
@@ -1885,16 +1927,17 @@ def ddp_train_path(tmp, trained, smi):
 
 
 def t5_train_steps(batches, ckpt_dir, n_data_shards):
-    """DDP2_STEPS of t5_small (fp32, dropout 0, no SpecAugment, AdamW at
-    1e-4) through trainer.train; → (metrics by step, weights on the CPU)."""
+    """DDP2_STEPS of t5_small (fp32, dropout DDP2_DROPOUT, SpecAugment,
+    AdamW at 1e-4) through trainer.train; → (metrics by step, weights on the
+    CPU)."""
     from yourmt3_tpu_torch import api
     from yourmt3_tpu_torch.train.trainer import train
     bundle = api.init_model("t5_small", "mt3_full_plus", seed=0,
-                            compute_dtype="float32", dropout_rate=0.0)
+                            compute_dtype="float32", dropout_rate=DDP2_DROPOUT)
     steps = StepLog()
     train(bundle, iter(batches), total_steps=len(batches), log_every=1, ckpt_every=0,
           ckpt_dir=ckpt_dir, base_lr=1e-4, schedule="constant", warmup_steps=1,
-          spec_augment=False, seed=0, logger=steps, n_data_shards=n_data_shards)
+          spec_augment=True, seed=0, logger=steps, n_data_shards=n_data_shards)
     return ([m for _, _, m in steps.records],
             {k: v.cpu() for k, v in bundle.model.state_dict().items()})
 
@@ -1940,18 +1983,21 @@ def two_ranks_on_one_card(tmp, smi):
     one, w1 = t5_train_steps(batches, os.path.join(tmp, "9b_one"), 1)
     two, w2 = ranks[0]["metrics"], ranks[0]["weights"]
     loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(two, one))
-    w_rel = max(((w2[k] - w1[k]).norm() / w1[k].norm()).item() for k in w1)
+    rels = {k: ((w2[k] - w1[k]).norm() / w1[k].norm()).item() for k in w1}
+    worst_k = max(rels, key=rels.get)
+    w_rel = rels[worst_k]
     same = all(torch.equal(ranks[1]["weights"][k], w2[k]) for k in w2)
     tokens = [int((b["labels"] != 0).sum()) for b in batches]
-    log(f"[{smi}] phase 9b: 2 gloo ranks on one card, t5_small fp32, global batch "
+    log(f"[{smi}] phase 9b: 2 gloo ranks on one card, t5_small fp32, dropout "
+        f"{DDP2_DROPOUT} + SpecAugment, global batch "
         f"{DDP2_BATCH} ({DDP2_BATCH // 2} per rank, target tokens {tokens}), "
         f"{DDP2_STEPS} steps, {t_ranks:.1f} s with the processes' start: losses "
         f"{[round(m['loss'], 6) for m in two]} vs one process "
         f"{[round(m['loss'], 6) for m in one]}, max rel diff {loss_rel:.3e} (tol "
         f"{TOL_DDP2_LOSS_REL}); grad norms {[round(m['grad_norm'], 5) for m in two]} "
         f"vs {[round(m['grad_norm'], 5) for m in one]}; weights max ||w2 - w1|| / "
-        f"||w1|| {w_rel:.3e} (tol {TOL_DDP2_WEIGHT_REL}); both ranks hold the same "
-        f"weights: {same}")
+        f"||w1|| {w_rel:.3e} (tol {TOL_DDP2_WEIGHT_REL}, {worst_k}; the next "
+        f"{sorted(rels.values())[-2]:.3e}); both ranks hold the same weights: {same}")
     assert len(two) == len(one) == DDP2_STEPS
     assert loss_rel <= TOL_DDP2_LOSS_REL and w_rel <= TOL_DDP2_WEIGHT_REL, (loss_rel, w_rel)
     assert same
@@ -1998,6 +2044,26 @@ def chunk_parallel_eval(tmp, smi, evaluated):
     assert launches == layers * greedy and launches > 0, (launches, greedy)
     assert paged == 0 and same_json
 
+    # the flagship evaluation at unequal shapes: 2 segments per rank
+    out_json2 = os.path.join(tmp, "eval_mesh_b2.json")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli_test.main(["-ckpt", ckpt, "-d", "synth_mc", "--split", "test",
+                   "--kv-quant", "int8c4p", "--weight-quant", "int8",
+                   "-b", "2", "--output-json", out_json2])
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    launches2, greedy2 = ia.int4_cross_attention.launches, decoding.greedy_decode.steps
+    with open(out_json2) as f, open(os.path.join(tmp, "eval.json")) as g:
+        same_json2 = f.read() == g.read()
+    log(f"[{smi}] phase 9c: the same cli.test at 2 segments per rank (phase 7: one "
+        f"device, batch 8): {wall2:.2f} s incl. load; greedy steps {greedy2}; int4 "
+        f"launches {launches2}; metrics JSON identical to phase 7's: {same_json2} "
+        f"(phase 6's checkpoint ends every stream at its second token)")
+    assert launches2 == layers * greedy2 and launches2 > 0, (launches2, greedy2)
+    assert same_json2
+
     seconds = 6.0
     song = sine_song(seconds)
     bundle = api.init_model("t5_small", "mt3_full_plus", seed=0,
@@ -2009,19 +2075,89 @@ def chunk_parallel_eval(tmp, smi, evaluated):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, greedy = da.paged_decode_attention.launches, decoding.greedy_decode.steps
-    t0 = time.perf_counter()
-    ref_notes, ref_errs = api.transcribe_audio_array(bundle, song, batch_size=8)
-    torch.cuda.synchronize()
-    wall_one = time.perf_counter() - t0
+    one, two = chunk_vs_one_device(bundle, song, 2)
     log(f"[{smi}] phase 9c: transcribe_song_chunk_parallel t5_small fast path "
         f"(int8 paged kernel), {seconds} s song, 8 segments per rank, L 1024: "
         f"{wall:.2f} s = {seconds / wall:.3f} audio-s/s (one device through "
-        f"transcribe_audio_array: {wall_one:.2f} s = {seconds / wall_one:.3f}); "
+        f"transcribe_audio_array: {one['wall']:.2f} s = {seconds / one['wall']:.3f}); "
         f"greedy steps {greedy}; paged launches {launches}; notes {len(notes)}, "
         f"errors {errs.total()}; identical to the one-device path: "
-        f"{notes == ref_notes and errs == ref_errs}")
+        f"{notes == one['notes'] and errs == one['errors']}")
     assert launches == 8 * greedy and launches > 0, (launches, greedy)
-    assert notes == ref_notes and errs == ref_errs
+    assert notes == one["notes"] and errs == one["errors"]
+    unequal_shapes_report(smi, "t5_small fast path (int8 paged kernel), L 1024",
+                          seconds, one, two)
+    del bundle
+    seconds = 8.0
+    bundle = api.init_model("perceiver_tf_mc13", "mc13_full_plus_256", seed=0,
+                            **FLAGSHIP)
+    one, two = chunk_vs_one_device(bundle, sine_song(seconds), 2)
+    unequal_shapes_report(smi, "perceiver_tf_mc13 int8c4p + int8 weights (int4 "
+                          "kernel), random weights, L 256", seconds, one, two)
+    del bundle
+
+
+def chunk_vs_one_device(bundle, song, spd):
+    """transcribe_audio_array at batch 8 (the one-device path, no repair)
+    and transcribe_song_chunk_parallel at `spd` segments per rank on the
+    same song, in this process's group; → one dict per path: notes, errors,
+    wall, greedy ids (S, C, L) (and the one-device decode's top two logits
+    by step, for the margin rule)."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.data.audio_io import slice_padded_array
+    from yourmt3_tpu_torch.parallel import chunk_stream as cs
+    S = slice_padded_array(song, bundle.audio_cfg.input_frames)[0].shape[0]
+    rec = Top2Recorder(bundle.model)
+    out = {"one": dict(ids=[]), "chunk": dict(ids=[])}
+    one_fn, chunk_fn = api.greedy_decode, cs.greedy_decode
+
+    def one_decode(*a, **kw):
+        with rec:
+            ids = one_fn(*a, **kw)
+        out["one"]["ids"].append(ids)
+        return ids
+
+    def chunk_decode(*a, **kw):
+        ids = chunk_fn(*a, **kw)
+        out["chunk"]["ids"].append(ids)
+        return ids
+
+    api.greedy_decode, cs.greedy_decode = one_decode, chunk_decode
+    try:
+        for name, run in (
+                ("one", lambda: api.transcribe_audio_array(bundle, song, batch_size=8)),
+                ("chunk", lambda: cs.transcribe_song_chunk_parallel(
+                    bundle, song, segments_per_device=spd))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            notes, errors = run()
+            torch.cuda.synchronize()
+            out[name].update(notes=notes, errors=errors, wall=time.perf_counter() - t0,
+                             ids=torch.cat(out[name]["ids"])[:S])
+    finally:
+        api.greedy_decode, cs.greedy_decode = one_fn, chunk_fn
+    out["one"]["top2"] = rec.values()
+    out["chunk"]["spd"] = spd
+    return out["one"], out["chunk"]
+
+
+def unequal_shapes_report(smi, label, seconds, one, two):
+    """Phase 9c at unequal per-rank shapes: chunk-parallel streams against
+    the one-device batch of 8; each parted stream printed with the one-device
+    decode's top-two margin, held to MARGIN_ULPS as early exit is."""
+    same, worst = parting_streams(label, one["ids"], two["ids"], one["top2"],
+                                  names=("one device", "chunk-parallel"))
+    n = one["ids"].shape[0] * one["ids"].shape[1]
+    log(f"[{smi}] phase 9c at unequal shapes: {label}, {seconds} s song, "
+        f"{two['spd']} segments per rank vs the one-device batch of 8: {same} of {n} "
+        f"streams identical, widest parting margin {worst:.2f} bf16 ulps (limit "
+        f"{MARGIN_ULPS}); notes {len(two['notes'])} vs {len(one['notes'])}, "
+        f"identical: {two['notes'] == one['notes'] and two['errors'] == one['errors']}; "
+        f"{two['wall']:.2f} s vs {one['wall']:.2f} s")
+    assert worst <= MARGIN_ULPS, worst
+    if same == n:
+        assert two["notes"] == one["notes"] and two["errors"] == one["errors"]
 
 
 def phase9(tmp, smi, trained, evaluated):
@@ -2055,15 +2191,15 @@ def phase9(tmp, smi, trained, evaluated):
 # ---------------------------------------------------------------------------
 
 TP_BATCH = 8
-# 10a: (data=1, model=2), the flagship with dropout and SpecAugment, whose
-# masks both ranks draw as one process does; 10b: (data=2, model=2), the
-# MoE flagship with dropout 0 and no SpecAugment (each data row draws its
-# own masks, which one process cannot repeat)
+# 10a: (data=1, model=2), the flagship; 10b: (data=2, model=2), the MoE
+# flagship; both with dropout and SpecAugment, whose masks every rank draws
+# for the global batch and slices (its data rows, its model-axis features),
+# so they are one process's
 TP_CASES = {
     "10a": dict(preset="perceiver_tf_mc13", layout=(1, 2), steps=3, dropout=0.05,
                 spec_augment=True),
-    "10b": dict(preset="perceiver_tf_mc13_moe", layout=(2, 2), steps=2, dropout=0.0,
-                spec_augment=False),
+    "10b": dict(preset="perceiver_tf_mc13_moe", layout=(2, 2), steps=2, dropout=0.05,
+                spec_augment=True),
 }
 TP_LR = 1e-4
 # fp32 (TF32 off) against one process: the sums are split over the ranks
@@ -2121,8 +2257,7 @@ def tp_train(case, batch, group):
     step = make_train_step(bundle.model, bundle.frontend, tx, group=group,
                            augment_fn=make_augment_fn() if c["spec_augment"] else None)
     state = create_train_state(bundle.model, tx)
-    gen = torch.Generator(device=bundle.device).manual_seed(
-        mesh.rank(group) if group is not None else 0)
+    gen = torch.Generator(device=bundle.device).manual_seed(0)
     reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2336,6 +2471,131 @@ def phase10(tmp, smi, trained):
     log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the grouped-query flagships
+# ---------------------------------------------------------------------------
+
+GROUPED = ("perceiver_tf_mc13_mqa", "perceiver_tf_mc13_gqa2")
+# the other caches JAX allows with grouped K/V, each decoded on the card
+# for GROUPED_MODE_STEPS steps of the same memory, and beam 2 as long
+GROUPED_MODES = ("none", "int8c4", "int4")
+GROUPED_MODE_STEPS = 64
+
+
+def grouped_flagship(preset, smi):
+    """Phase 11 for one grouped-query flagship at full width in fp32, random
+    weights from seed 0, on 2 segments of the 16 s song (L = 256): served on
+    the card through transcribe_segments_array with the fast decode settings
+    of a 13-channel decode (dense int8 self cache) and the beam-2 repair;
+    its encoder and memory against the CPU's (phase 8c's limits); the
+    card's memory decoded on the CPU, whose greedy tokens the card's may
+    leave only at near-ties (MARGIN_ULPS); then the other caches and beam 2
+    on the card. No kernel may launch: the grouped caches are dense."""
+    import torch
+    from yourmt3_tpu_torch import api
+    from yourmt3_tpu_torch.data.audio_io import slice_padded_array
+    from yourmt3_tpu_torch.models import decoding
+    from yourmt3_tpu_torch.models.ymt3 import YMT3
+    from yourmt3_tpu_torch.ops import decode_attention as da
+    from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    t_all = time.perf_counter()
+    task, over = "mc13_full_plus_256", api.fast_decode_overrides(13, 256)
+    assert over == {"kv_quant": "int8"}, over
+    kw = dict(seed=0, compute_dtype="float32", **over)
+    gpu = api.init_model(preset, task, **kw)
+    cpu = api.init_model(preset, task, device="cpu", **kw)
+    ac, tm = gpu.audio_cfg, gpu.task_manager
+    L, prefix = tm.max_token_length, tm.subtask_prefix_ids()
+    segs, starts = slice_padded_array(sine_song(16.0), ac.input_frames)
+    segs = np.ascontiguousarray(segs[:2], np.float32)
+    starts = (starts[:2] / ac.sample_rate).tolist()
+    audio_s = 2 * ac.input_frames / ac.sample_rate
+
+    # served on the card, the greedy pass's memory and ids kept (the repair
+    # encodes the segments it re-decodes once more)
+    kept = {}
+    encode_fn, greedy_fn = api._encode_batch, api.greedy_decode
+
+    def encode(bundle, audio):
+        memory = encode_fn(bundle, audio)
+        kept.setdefault("memory", memory)
+        return memory
+
+    def greedy(*a, **kw):
+        ids = greedy_fn(*a, **kw)
+        kept.setdefault("ids", ids)
+        return ids
+
+    api._encode_batch, api.greedy_decode = encode, greedy
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        notes, errs = api.transcribe_segments_array(gpu, segs, starts, batch_size=2,
+                                                    repair_beam=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        api._encode_batch, api.greedy_decode = encode_fn, greedy_fn
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    greedy_steps, beam_steps = decoding.greedy_decode.steps, decoding.beam_decode.steps
+    kernels = (da.paged_decode_attention.launches, ia.int4_cross_attention.launches)
+    enc_msg = encoder_card_vs_cpu(gpu, cpu, segs)
+
+    # the card's memory decoded on the CPU: the card's tokens against it
+    memory = kept["memory"]
+    rec = Top2Recorder(cpu.model)
+    with torch.no_grad(), rec:
+        cpu_ids = greedy_fn(cpu.model, memory.cpu(), L, prefix_ids=prefix,
+                            cross_kvs=cpu.model.init_cross_kv(memory.cpu()))
+    same, worst = parting_streams(f"{preset} int8", cpu_ids, kept["ids"], rec.values(),
+                                  names=("CPU", "card"))
+    n = cpu_ids.shape[0] * cpu_ids.shape[1]
+
+    # the other caches and beam 2, on the card, from the same memory
+    n_steps = GROUPED_MODE_STEPS
+    served = kept["ids"][..., :n_steps]
+    modes = []
+    with torch.no_grad():
+        for mode in GROUPED_MODES:
+            model = YMT3(gpu.cfg.replace(kv_quant=mode), ac.num_feature_bins).to(
+                gpu.device)
+            model.load_state_dict(gpu.model.state_dict(), strict=True)
+            ids = greedy_fn(model.eval(), memory, n_steps, prefix_ids=prefix)
+            assert ids.shape == served.shape and int(ids.min()) >= 0
+            assert int(ids.max()) < gpu.cfg.vocab_size
+            modes.append(f"{mode} {(ids == served).float().mean().item():.1%}")
+            del model
+        beam = decoding.beam_decode(gpu.model, memory, n_steps, beam_size=2,
+                                    prefix_ids=prefix)
+    assert beam.shape == served.shape and int(beam.max()) < gpu.cfg.vocab_size
+    kernels_after = (da.paged_decode_attention.launches, ia.int4_cross_attention.launches)
+    log(f"[{smi}] phase 11: {preset} (decoder_kv_heads {gpu.cfg.decoder_kv_heads} of "
+        f"{gpu.cfg.num_heads}) full width fp32, random weights (seed 0), 2 segments "
+        f"of the 16 s song, L {L}, served through transcribe_segments_array with "
+        f"{over} and the beam-2 repair (smoke numbers, not a benchmark): "
+        f"{wall:.2f} s = {audio_s / wall:.3f} audio-s/s, peak {peak:.1f} MiB; decode "
+        f"steps greedy {greedy_steps} + beam {beam_steps}; notes {len(notes)}, errors "
+        f"{errs.total()}; paged / int4 kernel launches {kernels} (dense caches); "
+        f"card vs CPU: {enc_msg}; greedy tokens from the card's memory: {same} of "
+        f"{n} streams identical to the CPU's, widest parting margin {worst:.2f} bf16 "
+        f"ulps (limit {MARGIN_ULPS}); the first {n_steps} tokens of the served int8 "
+        f"decode equal under {', '.join(modes)}; beam 2 ({n_steps} steps) "
+        f"{(beam == served).float().mean().item():.1%}; kernel launches after "
+        f"them {kernels_after}; {time.perf_counter() - t_all:.1f} s")
+    assert greedy_steps > 0 and kernels == kernels_after == (0, 0), kernels_after
+    assert worst <= MARGIN_ULPS, worst
+
+
+def phase11(smi):
+    """Phase 11: the two grouped-query flagships."""
+    t11 = time.perf_counter()
+    for preset in GROUPED:
+        grouped_flagship(preset, smi)
+    log(f"phase 11 took {time.perf_counter() - t11:.1f} s")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--kernels-only", action="store_true",
@@ -2387,6 +2647,7 @@ def main(argv=None) -> int:
     t8c = time.perf_counter()
     options_card_vs_cpu(smi)
     log(f"phase 8 took {t8 + time.perf_counter() - t8c:.1f} s")
+    phase11(smi)
     kernel_in_model()
     flagship_in_model()
     where_time_goes("t5_small", api.init_model(

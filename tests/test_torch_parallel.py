@@ -7,7 +7,11 @@ Training parity runs in fp32 with dropout and SpecAugment off, from
 weights bridged with `state_dict_from_jax`; the two halves of each global
 batch hold different numbers of non-pad tokens, so a per-rank token mean
 averaged over the ranks would differ from the global mean that both
-packages must compute."""
+packages must compute. The mask cases train with dropout and SpecAugment
+on and are held to the port's one-process step instead (the two
+frameworks' generators differ): each rank draws the masks of the global
+batch and keeps its rows, so world 2 gives the masks of world 1, as the
+reference's do."""
 
 import dataclasses
 import json
@@ -41,8 +45,8 @@ from yourmt3_tpu_torch.parallel.chunk_stream import transcribe_song_chunk_parall
 from yourmt3_tpu_torch.train.trainer import train
 from yourmt3_tpu_torch.weights import state_dict_from_jax
 
-from torch_parallel_util import (FP32, SMALL, module_job, notes_key, port_bundle,
-                                 run_ranks)
+from torch_parallel_util import (FP32, SMALL, check_weights, module_job, notes_key,
+                                 port_bundle, run_ranks, tp_bundle, tp_steps)
 from torch_port_util import numpy_params, one_intra_op_thread  # noqa: F401
 
 WORLD = 2
@@ -51,11 +55,16 @@ MOE_FLAGSHIP = ("perceiver_tf_mc13_moe", "mc13_full_plus_256", dict(
     d_model=64, d_kv=16, num_heads=4, d_ff=128, num_decoder_layers=2,
     ptf_num_latents=26, ptf_d_latent=32, ptf_num_blocks=1, ptf_num_moe_experts=4))
 T5_TINY = ("t5_tiny", "mt3_full_plus_256", {})
-# (model, grad_accum_steps, global batches): the accumulation case stops
-# one micro-step into its second window, so the checkpoint holds the
-# gradients pending in .grad, folded into the optimizer state
-CASES = {"t5_tiny": (T5_TINY, 1, 2), "moe_flagship": (MOE_FLAGSHIP, 1, 2),
-         "t5_tiny_accum2": (T5_TINY, 2, 3)}
+# (model, grad_accum_steps, global batches, masks): the accumulation case
+# stops one micro-step into its second window, so the checkpoint holds the
+# gradients pending in .grad, folded into the optimizer state; the mask
+# cases train with dropout MASK_DROPOUT and SpecAugment against the port's
+# one-process step
+CASES = {"t5_tiny": (T5_TINY, 1, 2, False), "moe_flagship": (MOE_FLAGSHIP, 1, 2, False),
+         "t5_tiny_accum2": (T5_TINY, 2, 3, False),
+         "t5_tiny_masks": (T5_TINY, 1, 2, True),
+         "moe_flagship_masks": (MOE_FLAGSHIP, 1, 2, True)}
+MASK_DROPOUT = 0.1
 OPT = dict(optimizer="adamw", base_lr=1e-4, schedule="constant", warmup_steps=1)
 # fp32 on both sides, sums in another order (and over two ranks): the
 # loss agrees to a few ulps, and the weights are held per tensor by
@@ -78,6 +87,15 @@ TOL_LOSS = 1e-5
 TOL_PARAM_REL = 1e-5
 ORDER_SENSITIVE = 1e-6
 TOL_ORDER_SENSITIVE = 1e-3
+# the mask cases against one process, as tests/test_torch_tensor_parallel.py
+# holds the model axis: the loss relative, each weight tensor by its
+# relative error, the tensors upstream of the MoE flagship's bf16 group
+# projection at bf16's unit roundoff outside the rounding band of the
+# one-process first gradient (torch_parallel_util.check_weights)
+TOL_MASK_LOSS_REL = 1e-5
+TOL_MASK_WEIGHT_REL = 1e-4
+TOL_MASK_UPSTREAM_REL = 2.0 ** -9
+MASK_BAND_MAX = 1e-2
 # non-pad tokens of the four rows of a global batch: rank 0 holds the
 # first two rows, rank 1 the last two
 NON_PAD = (200, 150, 40, 25)
@@ -167,12 +185,18 @@ def module_runs(tmp_path_factory):
            for preset, task, overrides in (T5_TINY, MOE_FLAGSHIP)}
     params = {p: numpy_params(jb.params) for p, jb in jbs.items()}
     sd0 = {p: state_dict_from_jax(v) for p, v in params.items()}
-    batches = {}
-    for name, ((preset, task, overrides), accum, n) in CASES.items():
+    batches, one_specs = {}, {}
+    for name, ((preset, task, overrides), accum, n, masks) in CASES.items():
         batches[name] = global_batches(jbs[preset].task_manager, n)
+        if masks:
+            overrides = dict(overrides, dropout_rate=MASK_DROPOUT)
+            one_specs[name] = dict(preset=preset, task=task, overrides=overrides,
+                                   state_dict=sd0[preset], batches=batches[name],
+                                   optimizer=OPT["optimizer"], lr=OPT["base_lr"],
+                                   spec_augment=True)
         torch.save(dict(preset=preset, task=task, overrides=overrides,
                         state_dict=sd0[preset], batches=batches[name],
-                        train_kw=dict(OPT, grad_accum_steps=accum)),
+                        train_kw=dict(OPT, grad_accum_steps=accum, spec_augment=masks)),
                    tmp / f"{name}.pt")
     rng = np.random.default_rng(0)
     song = (rng.standard_normal(int(16000 * 3.1)) * 0.1).astype(np.float32)
@@ -190,17 +214,22 @@ def module_runs(tmp_path_factory):
                                            max_length=CHUNK_L)
         jax_runs = {name: jax_sharded_steps(jbs[preset], params[preset], accum,
                                             batches[name], m)
-                    for name, ((preset, _, _), accum, _) in CASES.items()}
+                    for name, ((preset, _, _), accum, _, masks) in CASES.items()
+                    if not masks}
         moe = MOE_FLAGSHIP[0]
         _, weights4, _ = jax_sharded_steps(jbs[moe], params[moe], 1,
                                            batches["moe_flagship"], make_mesh(n_data=4))
+        # the port's one-process steps of the mask cases: → (metrics by
+        # step, weights after each step, the gradients fed at each step)
+        one_runs = {name: tp_steps(tp_bundle(spec), spec)
+                    for name, spec in one_specs.items()}
     finally:
         join()
     want = jax_runs["moe_flagship"][1]
     spread = {k: ((v - want[k]).norm() / want[k].norm()).item()
               for k, v in weights4.items()}
     sensitive = {k for k, v in spread.items() if v > ORDER_SENSITIVE}
-    return dict(tmp=tmp, jax_runs=jax_runs, moe_sensitive=sensitive,
+    return dict(tmp=tmp, jax_runs=jax_runs, one_runs=one_runs, moe_sensitive=sensitive,
                 song=song, split=split,
                 chunk_jax=(notes_key(jnotes), dataclasses.asdict(jerrs)),
                 t5_weights=sd0["t5_tiny"])
@@ -208,22 +237,47 @@ def module_runs(tmp_path_factory):
 
 @pytest.fixture(scope="module", params=list(CASES))
 def ddp_run(request, module_runs):
+    """A case's ranks and its reference: JAX's sharded step, or for a mask
+    case the port's one-process step (with its first gradient, for the
+    rounding band, and the tensors upstream of a Perceiver-TF's bf16 group
+    projection as the sensitive ones)."""
     name, tmp = request.param, module_runs["tmp"]
-    jm, jparams, jacc = module_runs["jax_runs"][name]
+    masks = CASES[name][3]
+    first = None
+    if masks:
+        jm, weights, grads = module_runs["one_runs"][name]
+        jparams, jacc, first = weights[-1], None, grads[0]
+        sensitive = ({k for k in jparams if k.startswith(("encoder.", "projection."))}
+                     if CASES[name][0] is MOE_FLAGSHIP else set())
+    else:
+        jm, jparams, jacc = module_runs["jax_runs"][name]
+        sensitive = module_runs["moe_sensitive"] if name == "moe_flagship" else set()
     with open(tmp / name / "train_log.jsonl") as f:
         pm = [json.loads(line) for line in f]
     ranks = [torch.load(tmp / f"{name}_rank{r}.pt") for r in range(WORLD)]
     opt = torch.load(tmp / name / "last" / "opt_state.pt")
-    return dict(name=name, accum=CASES[name][1], jm=jm, pm=pm, jparams=jparams,
-                jacc=jacc, ranks=ranks, opt=opt,
-                sensitive=module_runs["moe_sensitive"] if name == "moe_flagship" else set())
+    return dict(name=name, accum=CASES[name][1], masks=masks, jm=jm, pm=pm,
+                jparams=jparams, jacc=jacc, first=first, ranks=ranks, opt=opt,
+                sensitive=sensitive)
 
 
 def test_ddp_loss_matches_jax_sharded_step(ddp_run):
     """Every step's loss and accuracy is the global token mean, as JAX's
-    step computes it on the sharded global batch."""
+    step computes it on the sharded global batch; with dropout and
+    SpecAugment on (the mask cases), the port's one-process step on the
+    whole batch computes the same from the same masks."""
     jm, pm = ddp_run["jm"], ddp_run["pm"]
     assert len(pm) == len(jm)
+    if ddp_run["masks"]:
+        tol = TOL_MASK_UPSTREAM_REL if ddp_run["sensitive"] else TOL_MASK_WEIGHT_REL
+        for j, p in zip(jm, pm):
+            print(f"{ddp_run['name']}: loss {p['loss']:.7f} vs one process "
+                  f"{j['loss']:.7f}, grad norm {p['grad_norm']:.7f} vs {j['grad_norm']:.7f}")
+            assert abs(p["loss"] - j["loss"]) <= TOL_MASK_LOSS_REL * abs(j["loss"]), (
+                p["loss"], j["loss"])
+            assert abs(p["accuracy"] - j["accuracy"]) < 1e-6, (p, j)
+            assert abs(p["grad_norm"] - j["grad_norm"]) <= tol * j["grad_norm"], (p, j)
+        return
     for j, p in zip(jm, pm):
         assert abs(p["loss"] - j["loss"]) < TOL_LOSS, (p["loss"], j["loss"])
         for k in ("accuracy", "shift_accuracy", "shift_accuracy_50ms"):
@@ -240,17 +294,24 @@ def test_ddp_loss_matches_jax_sharded_step(ddp_run):
 
 def test_ddp_weights_match_jax_sharded_step(ddp_run):
     """The weights after the steps agree with JAX's (loosened only on the
-    tensors whose value JAX's own meshes leave apart), and every rank holds
-    the same weights."""
+    tensors whose value JAX's own meshes leave apart), or in a mask case
+    with the port's one-process step's, and every rank holds the same
+    weights."""
     jparams, ranks, sensitive = ddp_run["jparams"], ddp_run["ranks"], ddp_run["sensitive"]
     assert sorted(ranks[0]) == sorted(jparams)
     assert len(sensitive) <= 2 * len(jparams) // 3, sorted(sensitive)
+    for k in jparams:
+        for other in ranks[1:]:
+            assert torch.equal(other[k], ranks[0][k]), k
+    if ddp_run["masks"]:
+        check_weights(ranks[0], jparams, ddp_run["first"], sensitive,
+                      f"{ddp_run['name']} world {WORLD} vs one process",
+                      TOL_MASK_WEIGHT_REL, TOL_MASK_UPSTREAM_REL, MASK_BAND_MAX)
+        return
     for k, want in jparams.items():
         err = ((ranks[0][k] - want).norm() / want.norm()).item()
         tol = TOL_ORDER_SENSITIVE if k in sensitive else TOL_PARAM_REL
         assert err <= tol, (k, err, tol)
-        for other in ranks[1:]:
-            assert torch.equal(other[k], ranks[0][k]), k
 
 
 def test_ddp_checkpoint_holds_the_pending_micro_gradients(ddp_run):

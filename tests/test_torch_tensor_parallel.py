@@ -55,6 +55,7 @@ from yourmt3_tpu_torch.tokens.task_manager import TaskManager
 from yourmt3_tpu_torch.weights import INVERSE_RULES, flatten_params, state_dict_from_jax
 
 from torch_parallel_util import FP32, SMALL, run_ranks, tp_bundle, tp_job, tp_steps
+from torch_parallel_util import check_weights as util_check_weights
 from torch_port_util import numpy_params, one_intra_op_thread  # noqa: F401
 
 TINY_MOE = dict(d_model=64, d_kv=16, num_heads=4, d_ff=128, num_decoder_layers=2,
@@ -304,47 +305,14 @@ def sensitive_tensors(runs, name):
             if k.startswith(("encoder.", "projection."))}
 
 
-def rounding_band(g, tol):
-    """The elements of gradient `g` that are nonzero and within tol · rms
-    of zero, the rms taken over each row (the last axis) of a matrix or
-    over the whole of a vector."""
-    a = g.abs()
-    rms = a.pow(2).mean(-1, keepdim=True).sqrt() if a.ndim > 1 else a.pow(2).mean().sqrt()
-    return (a > 0) & (a <= tol * rms)
-
-
 def check_weights(runs, name, got, want, what):
-    """Each tensor by ||got - want|| / ||want||: TOL_WEIGHT_REL, or
+    """Each tensor by its relative error: TOL_WEIGHT_REL, or
     TOL_ORDER_SENSITIVE over the order-sensitive tensors' elements outside
-    the rounding band. The band is a rule on the one-process step's first
-    gradient, whose order-sensitive tensors agree to bf16's rounding only:
-    Adam's first step is about lr · sign(g), and it turns where the
-    element's g is nonzero and within TOL_ORDER_SENSITIVE · rms of zero
-    (the rms of its row: the gradient's rounding scales with the terms
-    summed into the row, which are small in a rarely chosen expert's). At
-    most BAND_MAX of the case's elements may lie in the band."""
-    sensitive = sensitive_tensors(runs, name)
-    first = runs["one"][name][2][0]
-    worst, kind = {}, {}
-    n_band = n_all = 0
-    for k, v in want.items():
-        tol = TOL_ORDER_SENSITIVE if k in sensitive else TOL_WEIGHT_REL
-        band = rounding_band(first[k], tol) if k in sensitive else torch.zeros_like(
-            v, dtype=torch.bool)
-        keep = ~band
-        n_band, n_all = n_band + int(band.sum()), n_all + v.numel()
-        kind[k] = ("bias" if k.endswith(".bias") else "upstream rel" if k in sensitive
-                   else "rel")
-        err = ((got[k] - v)[keep].norm() / v[keep].norm()).item() if keep.any() else 0.0
-        worst[k] = (err / tol, err)
-    for group in sorted(set(kind.values())):
-        k = max((n for n in worst if kind[n] == group), key=lambda n: worst[n])
-        print(f"{what}: worst {group} {k} {worst[k][1]:.3e} "
-              f"({worst[k][0]:.3f} of its tolerance)")
-    print(f"{what}: {n_band} of {n_all} elements in the rounding band")
-    k = max(worst, key=lambda n: worst[n])
-    assert worst[k][0] <= 1.0, (k, worst[k])
-    assert n_band <= BAND_MAX * n_all, (n_band, n_all)
+    the rounding band of the one-process step's first gradient, with at
+    most BAND_MAX of the case's elements in the band
+    (torch_parallel_util.check_weights)."""
+    util_check_weights(got, want, runs["one"][name][2][0], sensitive_tensors(runs, name),
+                       what, TOL_WEIGHT_REL, TOL_ORDER_SENSITIVE, BAND_MAX)
 
 
 LAYOUT_CASES = [(name, layout) for name, c in CASES.items() for layout in c[5]]

@@ -30,11 +30,12 @@ def run_ranks(job, world: int, tmp, *args, timeout: float = JOIN_TIMEOUT_S) -> N
 
 def port_bundle(preset, task, overrides, state_dict=None):
     """The port's fp32 bundle on the CPU at the small audio config, with
-    `state_dict` (bridged from JAX) loaded when given."""
+    `state_dict` (bridged from JAX) loaded when given; `overrides` may set
+    the dropout rate."""
     from yourmt3_tpu_torch.api import init_model
     from yourmt3_tpu_torch.config.audio import AudioConfig
     b = init_model(preset, task, audio_cfg=AudioConfig(**SMALL), device="cpu",
-                   **FP32, **overrides)
+                   **dict(FP32, **overrides))
     if state_dict is not None:
         b.model.load_state_dict(state_dict, strict=True)
     return b
@@ -65,7 +66,7 @@ def train_job(rank, world, tmp, name):
     b = port_bundle(spec["preset"], spec["task"], spec["overrides"], spec["state_dict"])
     train(b, iter(spec["batches"]), total_steps=len(spec["batches"]), log_every=1,
           ckpt_every=len(spec["batches"]), ckpt_dir=os.path.join(tmp, name),
-          spec_augment=False, n_data_shards=world, **spec["train_kw"])
+          n_data_shards=world, **spec["train_kw"])
     torch.save(b.model.state_dict(), os.path.join(tmp, f"{name}_rank{rank}.pt"))
 
 
@@ -118,8 +119,8 @@ def tp_job(rank, world, tmp, n_model, names):
     trained by make_train_step over the mesh; every rank gathers the
     weights and writes the checkpoint tmp/<name>_tp<n_data>x<n_model>
     (rank 0 writes), and rank 0 its metrics and gathered weights to
-    tmp/<name>_tp<n_data>x<n_model>.pt. Each data row's ranks seed their
-    generator with the row, so they draw the same masks. An all-gather into
+    tmp/<name>_tp<n_data>x<n_model>.pt. Every rank seeds its generator
+    as one process does and draws the masks of one process. An all-gather into
     one tensor (which gloo on CUDA tensors does not carry) raises here."""
     import torch.distributed as dist
     import torch.distributed._functional_collectives as funcol
@@ -184,7 +185,7 @@ def tp_steps(bundle, spec, group=None):
     step = make_train_step(bundle.model, bundle.frontend, tx, group=group,
                            augment_fn=make_augment_fn() if spec["spec_augment"] else None)
     state = create_train_state(bundle.model, tx)
-    gen = torch.Generator().manual_seed(mesh.rank(group) if group is not None else 0)
+    gen = torch.Generator().manual_seed(0)
     metrics, weights = [], []
     for batch in spec["batches"]:
         if group is not None:
@@ -195,3 +196,45 @@ def tp_steps(bundle, spec, group=None):
         # storage, which the next step updates in place
         weights.append({k: v.clone() for k, v in _to_cpu(bundle.model.state_dict()).items()})
     return metrics, weights, grads
+
+
+def rounding_band(g, tol):
+    """The elements of gradient `g` that are nonzero and within tol · rms
+    of zero, the rms taken over each row (the last axis) of a matrix or
+    over the whole of a vector."""
+    a = g.abs()
+    rms = a.pow(2).mean(-1, keepdim=True).sqrt() if a.ndim > 1 else a.pow(2).mean().sqrt()
+    return (a > 0) & (a <= tol * rms)
+
+
+def check_weights(got, want, first_grad, sensitive, what, tol, tol_sensitive, band_max):
+    """Each tensor by ||got - want|| / ||want||: `tol`, or `tol_sensitive`
+    over the `sensitive` tensors' elements outside the rounding band. The
+    band is a rule on the one-process step's first gradient `first_grad`,
+    whose sensitive tensors (upstream of a bf16 group projection) agree to
+    bf16's rounding only: Adam's first step is about lr · sign(g), and it
+    turns where the element's g is nonzero and within tol_sensitive · rms
+    of zero (the rms of its row: the gradient's rounding scales with the
+    terms summed into the row, which are small in a rarely chosen
+    expert's). At most band_max of the elements may lie in the band."""
+    worst, kind = {}, {}
+    n_band = n_all = 0
+    for k, v in want.items():
+        t = tol_sensitive if k in sensitive else tol
+        band = rounding_band(first_grad[k], t) if k in sensitive else torch.zeros_like(
+            v, dtype=torch.bool)
+        keep = ~band
+        n_band, n_all = n_band + int(band.sum()), n_all + v.numel()
+        kind[k] = ("bias" if k.endswith(".bias") else "upstream rel" if k in sensitive
+                   else "rel")
+        err = ((got[k] - v)[keep].norm() / v[keep].norm()).item() if keep.any() else 0.0
+        worst[k] = (err / t, err)
+    for group in sorted(set(kind.values())):
+        k = max((n for n in worst if kind[n] == group), key=lambda n: worst[n])
+        print(f"{what}: worst {group} {k} {worst[k][1]:.3e} "
+              f"({worst[k][0]:.3f} of its tolerance)")
+    print(f"{what}: {n_band} of {n_all} elements in the rounding band")
+    k = max(worst, key=lambda n: worst[n])
+    assert worst[k][0] <= 1.0, (k, worst[k])
+    assert n_band <= band_max * n_all, (n_band, n_all)
+

@@ -90,8 +90,8 @@ def _dryrun_rank(rank: int, world: int) -> None:
             tx = make_optimizer("adamw", 1e-3, "cosine", warmup_steps=10,
                                 total_steps=100)
             step = make_train_step(bundle.model, bundle.frontend, tx, group=m)
-            # the ranks of one data row draw the same dropout masks
-            gen = torch.Generator().manual_seed(mesh.rank(m))
+            # every rank draws the global batch's masks and keeps its own
+            gen = torch.Generator().manual_seed(0)
             _, metrics = step(create_train_state(bundle.model, tx),
                               mesh.shard_batch(batch, m), gen)
             loss = float(metrics["loss"])

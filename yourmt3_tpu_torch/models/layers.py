@@ -22,7 +22,7 @@ FF hidden local between their layers instead.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -391,15 +391,19 @@ class Dropout(nn.Module):
     `deterministic=True`), or at rate 0, it is the identity. `generator`
     is a torch.Generator on the activations' device, set for the whole
     model by `YMT3.set_dropout_generator`; None draws from the device's
-    default generator. On an activation whose last axis is this rank's
-    slice over the model axis `tp`, the mask is this rank's slice of the
-    whole mask, drawn whole (so every rank's generator stays in step, and
-    the masks are those of one process)."""
+    default generator. The mask is drawn whole and sliced, so that every
+    rank's generator stays in step and the masks are those of one process:
+    `shard` = (rank, world) on the data axis takes this rank's rows of a
+    mask drawn for the global batch (the leading axis of every activation
+    is batch-major: examples, or examples times channels, latents or
+    frames), and on an activation whose last axis is this rank's slice over
+    the model axis `tp`, this rank's slice of the whole feature axis."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None
+        self.shard: Tuple[int, int] = (0, 1)
 
     def forward(self, x: torch.Tensor, tp=None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -407,10 +411,17 @@ class Dropout(nn.Module):
         keep = 1.0 - self.rate
         if keep == 0.0:
             return torch.zeros_like(x)
-        shape = x.shape if tp is None else (*x.shape[:-1], x.shape[-1] * tp.size)
-        mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
+        rank, world = self.shard
+        n, d = x.shape[0], x.shape[-1]
+        shape = list(x.shape)
+        shape[0] *= world
         if tp is not None:
-            mask = mask.narrow(-1, tp.rank * x.shape[-1], x.shape[-1])
+            shape[-1] *= tp.size
+        mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
+        if world > 1:
+            mask = mask.narrow(0, rank * n, n)
+        if tp is not None:
+            mask = mask.narrow(-1, tp.rank * d, d)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 

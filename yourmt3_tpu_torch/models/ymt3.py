@@ -78,12 +78,15 @@ class YMT3(nn.Module):
             if isinstance(mod, QuantDense) and mod.weight_quant != "none":
                 mod.requantize()
 
-    def set_dropout_generator(self, gen: Optional[torch.Generator]) -> None:
+    def set_dropout_generator(self, gen: Optional[torch.Generator],
+                              shard: Tuple[int, int] = (0, 1)) -> None:
         """Every dropout site draws from `gen` (a generator on the model's
-        device) in train() mode."""
+        device) in train() mode. shard = (rank, world) on the data axis:
+        each site draws the mask of the global batch and keeps this rank's
+        rows (every rank passes a generator in the same state)."""
         for mod in self.modules():
             if isinstance(mod, Dropout):
-                mod.generator = gen
+                mod.generator, mod.shard = gen, shard
 
     @property
     def dtype(self) -> torch.dtype:

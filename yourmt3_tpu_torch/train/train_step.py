@@ -65,7 +65,10 @@ def make_train_step(model: YMT3, frontend: SpectrogramFrontend,
     optional "pitch_shift_idx": (B,) selecting a semitone from
     `pitch_shift_semitones` (labels are shifted on the host)}. `gen` is a
     torch.Generator on the model's device: it draws the SpecAugment masks
-    and the dropout masks. Metrics are 0-dim device tensors (no host
+    and the dropout masks: every rank of the data axis passes a generator
+    in the same state, and each draws the masks of the global batch and
+    keeps its own rows, so the masks are those of one process whatever the
+    world size. Metrics are 0-dim device tensors (no host
     synchronisation inside the step): loss, accuracy, grad_norm (before
     clipping), grad_norm_postclip and, with `shift_id_range` (the codec's
     [lo, hi) shift-token ids), shift_accuracy and shift_accuracy_50ms
@@ -94,8 +97,8 @@ def make_train_step(model: YMT3, frontend: SpectrogramFrontend,
     averaged over that axis alone. With a `model` axis above 1 (the
     parameters placed by mesh.shard_params) that average is one
     all-reduce of every gradient's local shard, not DDP, and the ranks of
-    one data row must pass generators in the same state: their dropout
-    and SpecAugment masks are then those of one process."""
+    one data row draw the same masks and slice the model axis's features
+    as well."""
     params = trainable_params(model)
     names = list(params)
     dev = model.shared.weight.device
@@ -103,6 +106,7 @@ def make_train_step(model: YMT3, frontend: SpectrogramFrontend,
                        and group[pmesh.MODEL_AXIS].size() > 1)
     group = pmesh.data_group(group) if group is not None else None
     world = 1 if group is None else dist.get_world_size(group)
+    shard = (0 if group is None else dist.get_rank(group), world)
     net = model
     if group is not None and not tensor_parallel:
         net = DistributedDataParallel(
@@ -132,7 +136,7 @@ def make_train_step(model: YMT3, frontend: SpectrogramFrontend,
 
     def train_step(state: TrainState, batch, gen: Optional[torch.Generator]):
         model.train()
-        model.set_dropout_generator(gen)
+        model.set_dropout_generator(gen, shard)
         audio, labels = _device_batch(batch, dev)
         with torch.no_grad():
             if pitch_shift_semitones is not None and "pitch_shift_idx" in batch:
@@ -142,7 +146,7 @@ def make_train_step(model: YMT3, frontend: SpectrogramFrontend,
                     tuple(pitch_shift_semitones))
             feats = frontend(audio)
             if augment_fn is not None:
-                feats = augment_fn(gen, feats)
+                feats = augment_fn(gen, feats, shard=shard)
         applies = not accumulate or state.opt_state["mini_step"] == grad_accum_steps - 1
         with contextlib.nullcontext() if applies or tensor_parallel else net.no_sync():
             logits = net(feats, shift_right(labels))

@@ -143,7 +143,8 @@ def train(
                 "fresh run from these weights")
         if rank == 0:
             print(f"resuming at step {start_step} from {resume_from}")
-    gen = torch.Generator(device=bundle.device).manual_seed(seed + rank)
+    # one stream on every rank: each draws the global batch's masks
+    gen = torch.Generator(device=bundle.device).manual_seed(seed)
     own_logger = logger is None and rank == 0
     if rank:
         logger = _NoLogger()
