@@ -32,6 +32,7 @@ from .tokens.dataclasses import Note
 from .tokens.event2note import DecodeErrors, per_segment_error_counts
 from .tokens.midi_io import note_event2midi
 from .tokens.task_manager import TaskManager
+from .utils import profiling
 
 
 def resolve_device(device=None) -> torch.device:
@@ -124,8 +125,9 @@ def load_checkpoint(path: str, model_preset: Optional[str] = None,
 # ---------------------------------------------------------------------------
 
 def _encode_batch(bundle: ModelBundle, audio: np.ndarray) -> torch.Tensor:
-    feats = bundle.frontend(torch.from_numpy(audio).to(bundle.device))
-    return bundle.model.encode(feats)
+    with profiling.span("encode"):
+        feats = bundle.frontend(torch.from_numpy(audio).to(bundle.device))
+        return bundle.model.encode(feats)
 
 
 def _padded_batches(segments: np.ndarray, rows: Sequence[int],
@@ -164,42 +166,44 @@ def transcribe_segments_array(
         raise ValueError(
             "repetition_guard>0 is only supported on the plain greedy path "
             "(not beam_size>1 or early_exit) — drop one of the flags")
-    ac = bundle.audio_cfg
-    tm = bundle.task_manager
-    prefix = tm.subtask_prefix_ids(subtask)
-    L = tm.max_token_length
-    S = segments.shape[0]
+    with profiling.request("transcribe"):
+        ac = bundle.audio_cfg
+        tm = bundle.task_manager
+        prefix = tm.subtask_prefix_ids(subtask)
+        L = tm.max_token_length
+        S = segments.shape[0]
 
-    all_ids = []
-    for block, chunk in _padded_batches(segments, range(S), batch_size,
-                                        ac.input_frames):
-        memory = _encode_batch(bundle, chunk)
-        if beam_size > 1:
-            ids = beam_decode(bundle.model, memory, L, beam_size=beam_size,
-                              prefix_ids=prefix)
-        else:
-            cross_kvs = bundle.model.init_cross_kv(memory)
-            if early_exit:
-                ids = greedy_decode_early_exit(bundle.model, memory, L,
-                                               prefix_ids=prefix,
-                                               cross_kvs=cross_kvs)
+        all_ids = []
+        for block, chunk in _padded_batches(segments, range(S), batch_size,
+                                            ac.input_frames):
+            memory = _encode_batch(bundle, chunk)
+            if beam_size > 1:
+                ids = beam_decode(bundle.model, memory, L, beam_size=beam_size,
+                                  prefix_ids=prefix)
             else:
-                ids = greedy_decode(bundle.model, memory, L, prefix_ids=prefix,
-                                    phases=decode_phases, cross_kvs=cross_kvs,
-                                    repetition_guard=repetition_guard)
-        all_ids.append(ids[: len(block)])
-    seg_ids = torch.cat(all_ids)  # (S, C, L) on the device
-    notes, errors = tm.detokenize_song(seg_ids, list(start_times))
-    if repair_beam > 1 and beam_size == 1 and errors.total() > 0:
-        repaired = _repair_error_segments(bundle, segments,
-                                          seg_ids.cpu().numpy(),
-                                          list(start_times), prefix, L,
-                                          batch_size, repair_beam)
-        if repaired is not None:
-            notes2, errors2 = tm.detokenize_song(repaired, list(start_times))
-            if errors2.total() < errors.total():
-                notes, errors = notes2, errors2
-    return notes, errors
+                with profiling.span("cross_kv"):
+                    cross_kvs = bundle.model.init_cross_kv(memory)
+                if early_exit:
+                    ids = greedy_decode_early_exit(bundle.model, memory, L,
+                                                   prefix_ids=prefix,
+                                                   cross_kvs=cross_kvs)
+                else:
+                    ids = greedy_decode(bundle.model, memory, L, prefix_ids=prefix,
+                                        phases=decode_phases, cross_kvs=cross_kvs,
+                                        repetition_guard=repetition_guard)
+            all_ids.append(ids[: len(block)])
+        seg_ids = torch.cat(all_ids)  # (S, C, L) on the device
+        notes, errors = tm.detokenize_song(seg_ids, list(start_times))
+        if repair_beam > 1 and beam_size == 1 and errors.total() > 0:
+            repaired = _repair_error_segments(bundle, segments,
+                                              seg_ids.cpu().numpy(),
+                                              list(start_times), prefix, L,
+                                              batch_size, repair_beam)
+            if repaired is not None:
+                notes2, errors2 = tm.detokenize_song(repaired, list(start_times))
+                if errors2.total() < errors.total():
+                    notes, errors = notes2, errors2
+        return notes, errors
 
 
 def _repair_error_segments(
@@ -213,9 +217,10 @@ def _repair_error_segments(
     predecessor as well as s itself."""
     S, C = seg_ids.shape[0], seg_ids.shape[1]
     chan_ids = [[seg_ids[s, c] for s in range(S)] for c in range(C)]
-    totals, ties = per_segment_error_counts(
-        chan_ids, start_times, bundle.task_manager.codec,
-        default_programs=bundle.task_manager.channel_default_programs)
+    with profiling.span("repair.scan"):
+        totals, ties = per_segment_error_counts(
+            chan_ids, start_times, bundle.task_manager.codec,
+            default_programs=bundle.task_manager.channel_default_programs)
     suspects = set(np.nonzero(totals.sum(axis=0))[0].tolist())
     order = sorted(range(S), key=lambda s: start_times[s])
     pos_in_order = {s: i for i, s in enumerate(order)}
@@ -264,12 +269,15 @@ def transcribe(bundle: ModelBundle, audio_path: str,
     """Audio file → MIDI file path. repair_beam=2 (default) re-decodes the
     segments the detokenizer rejects with beam-2; 0 keeps the raw greedy
     stream."""
-    audio, sr = load_audio_file(audio_path, bundle.audio_cfg.sample_rate)
-    notes, _ = transcribe_audio_array(bundle, audio, sr, batch_size, subtask,
-                                      beam_size=beam_size,
-                                      repetition_guard=repetition_guard,
-                                      repair_beam=repair_beam)
-    if output_path is None:
-        output_path = os.path.splitext(audio_path)[0] + ".mid"
-    note_event2midi(notes, output_path)
+    with profiling.span("transcribe"):
+        with profiling.span("load_audio"):
+            audio, sr = load_audio_file(audio_path, bundle.audio_cfg.sample_rate)
+        notes, _ = transcribe_audio_array(bundle, audio, sr, batch_size, subtask,
+                                          beam_size=beam_size,
+                                          repetition_guard=repetition_guard,
+                                          repair_beam=repair_beam)
+        if output_path is None:
+            output_path = os.path.splitext(audio_path)[0] + ".mid"
+        with profiling.span("write_midi"):
+            note_event2midi(notes, output_path)
     return output_path

@@ -17,6 +17,7 @@ the synthetic set with data/preprocess/synth.py `build_synth_dataset`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 
@@ -63,6 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "and only value: the world size)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA device")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the training with torch.profiler into DIR and "
+                        "print the summary (utils/profiling.py)")
     return p
 
 
@@ -75,6 +79,7 @@ def main(argv=None) -> str:
     from ..data.dataset_train import TrainDataset
     from ..parallel import mesh
     from ..train.trainer import MetricLogger, train
+    from ..utils import profiling
 
     preset = get_data_preset(args.data_preset)
     task = args.task or preset.default_task
@@ -105,16 +110,18 @@ def main(argv=None) -> str:
         num_workers = max(1, min(4, (os.cpu_count() or 1) - 1))
     batches = ds.batches(args.batch_size, num_workers=num_workers)
     try:
-        train(bundle, batches,
-              total_steps=args.total_steps, log_every=args.log_every,
-              ckpt_every=args.ckpt_every, ckpt_dir=ckpt_dir,
-              optimizer=args.optimizer, base_lr=args.learning_rate,
-              schedule=args.schedule, warmup_steps=args.warmup_steps,
-              grad_accum_steps=args.grad_accum,
-              spec_augment=not args.no_spec_augment,
-              pitch_shift_semitones=shifts or None,
-              n_data_shards=args.n_data_shards, seed=args.seed, logger=logger,
-              resume_from=args.resume)
+        with (profiling.trace(args.profile) if args.profile
+              else contextlib.nullcontext()):
+            train(bundle, batches,
+                  total_steps=args.total_steps, log_every=args.log_every,
+                  ckpt_every=args.ckpt_every, ckpt_dir=ckpt_dir,
+                  optimizer=args.optimizer, base_lr=args.learning_rate,
+                  schedule=args.schedule, warmup_steps=args.warmup_steps,
+                  grad_accum_steps=args.grad_accum,
+                  spec_augment=not args.no_spec_augment,
+                  pitch_shift_semitones=shifts or None,
+                  n_data_shards=args.n_data_shards, seed=args.seed,
+                  logger=logger, resume_from=args.resume)
     finally:
         batches.close()  # stops the producer threads or processes
         if logger is not None:

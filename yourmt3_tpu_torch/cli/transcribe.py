@@ -11,6 +11,7 @@ randomly initialized from --seed (a smoke run).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 from typing import List, Optional
 
@@ -51,6 +52,9 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
                    help="seed of the random init when no checkpoint is given")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA device")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the transcriptions with torch.profiler into "
+                        "DIR and print the summary (utils/profiling.py)")
     args = p.parse_args(argv)
 
     inputs = list(args.inputs)
@@ -73,6 +77,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
                        transcribe)
     from ..tokens.task_manager import TaskManager
     from ..train.checkpoint import read_meta
+    from ..utils import profiling
 
     device = "cpu" if args.cpu else None
     task = read_meta(args.checkpoint).get("task", args.task) if args.checkpoint \
@@ -89,16 +94,18 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
                             device=device, **ov)
     os.makedirs(args.output_dir, exist_ok=True)
     outs = []
-    for path in inputs:
-        out = os.path.join(
-            args.output_dir,
-            os.path.splitext(os.path.basename(path))[0] + ".mid")
-        mid = transcribe(bundle, path, out, batch_size=args.batch_size,
-                         subtask=args.subtask, beam_size=args.beam_size,
-                         repetition_guard=args.repetition_guard,
-                         repair_beam=args.repair_beam)
-        print(f"{path} -> {mid}")
-        outs.append(mid)
+    with (profiling.trace(args.profile) if args.profile
+          else contextlib.nullcontext()):
+        for path in inputs:
+            out = os.path.join(
+                args.output_dir,
+                os.path.splitext(os.path.basename(path))[0] + ".mid")
+            mid = transcribe(bundle, path, out, batch_size=args.batch_size,
+                             subtask=args.subtask, beam_size=args.beam_size,
+                             repetition_guard=args.repetition_guard,
+                             repair_beam=args.repair_beam)
+            print(f"{path} -> {mid}")
+            outs.append(mid)
     return outs
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..tokens.codec import EOS_ID, PAD_ID
+from ..utils import profiling
 from .ymt3 import YMT3
 
 
@@ -45,36 +46,42 @@ def _greedy_steps(model: YMT3, st: _GreedyState, limit: int, cross_kvs,
     """Run greedy steps on `st` in place until `limit` or until every
     stream is done, reading "all done" on the host every `unroll` steps."""
     P = len(prefix)
-    while st.pos < limit and not bool(st.done.all()):
-        for _ in range(unroll):
-            pos, buf, done = st.pos, st.buf, st.done
-            tok = buf[:, pos:pos + 1]
-            logits, st.self_kvs = model.decode_step(tok, pos, st.self_kvs,
-                                                    cross_kvs, kv_len=kv_len)
-            if ban_eos:
-                logits[:, eos_id] = -1e9
-            nxt = torch.argmax(logits, dim=-1)
-            if pos < P:
-                nxt = torch.full_like(nxt, prefix[pos])
-            if repetition_guard > 0:
+    with profiling.span("decode.greedy"):
+        while st.pos < limit:
+            with profiling.span("decode.done_read"):
+                finished = bool(st.done.all())
+            if finished:
+                break
+            for _ in range(unroll):
+                pos, buf, done = st.pos, st.buf, st.done
+                tok = buf[:, pos:pos + 1]
+                with profiling.span("decode.step"):
+                    logits, st.self_kvs = model.decode_step(tok, pos, st.self_kvs,
+                                                            cross_kvs, kv_len=kv_len)
+                if ban_eos:
+                    logits[:, eos_id] = -1e9
+                nxt = torch.argmax(logits, dim=-1)
                 if pos < P:
-                    st.rep = torch.zeros_like(st.rep)
-                    st.rep2 = torch.zeros_like(st.rep2)
-                else:
-                    live = ~done
-                    st.rep = torch.where(live & (nxt == tok[:, 0]), st.rep + 1, 1)
-                    in_cycle = live & (nxt == buf[:, max(pos - 1, 0)])
-                    if pos < 1:
-                        in_cycle = torch.zeros_like(in_cycle)
-                    st.rep2 = torch.where(in_cycle, st.rep2 + 1, 1)
-                    trip = (st.rep >= repetition_guard) | (
-                        st.rep2 >= 2 * repetition_guard)
-                    nxt = torch.where(trip & live, eos_id, nxt)
-            nxt = torch.where(done, PAD_ID, nxt)
-            st.done = done | (nxt == eos_id)
-            buf[:, pos + 1] = nxt
-            st.pos += 1
-            greedy_decode.steps += 1
+                    nxt = torch.full_like(nxt, prefix[pos])
+                if repetition_guard > 0:
+                    if pos < P:
+                        st.rep = torch.zeros_like(st.rep)
+                        st.rep2 = torch.zeros_like(st.rep2)
+                    else:
+                        live = ~done
+                        st.rep = torch.where(live & (nxt == tok[:, 0]), st.rep + 1, 1)
+                        in_cycle = live & (nxt == buf[:, max(pos - 1, 0)])
+                        if pos < 1:
+                            in_cycle = torch.zeros_like(in_cycle)
+                        st.rep2 = torch.where(in_cycle, st.rep2 + 1, 1)
+                        trip = (st.rep >= repetition_guard) | (
+                            st.rep2 >= 2 * repetition_guard)
+                        nxt = torch.where(trip & live, eos_id, nxt)
+                nxt = torch.where(done, PAD_ID, nxt)
+                st.done = done | (nxt == eos_id)
+                buf[:, pos + 1] = nxt
+                st.pos += 1
+                greedy_decode.steps += 1
 
 
 def greedy_decode(
@@ -118,6 +125,7 @@ def greedy_decode(
 
 greedy_decode.steps = 0  # greedy steps run since the last reset (both
 # greedy decoders)
+profiling.register("decode.greedy_steps", lambda f=greedy_decode: f.steps)
 
 
 def greedy_decode_early_exit(
@@ -152,7 +160,8 @@ def greedy_decode_early_exit(
     while True:
         _greedy_steps(model, st, min(st.pos + chunk, max_length), cross_kvs,
                       prefix, eos_id)
-        done_h = st.done.cpu().numpy()[: len(order)]
+        with profiling.span("decode.done_read"):
+            done_h = st.done.cpu().numpy()[: len(order)]
         if st.pos >= max_length or done_h.all():
             break
         n_active = int((~done_h).sum())
@@ -177,6 +186,8 @@ def greedy_decode_early_exit(
 
 
 greedy_decode_early_exit.compactions = 0  # compactions since the last reset
+profiling.register("decode.early_exit_compactions",
+                   lambda f=greedy_decode_early_exit: f.compactions)
 
 
 def reorder_cache_streams(kvs, parent: torch.Tensor):
@@ -211,7 +222,8 @@ def beam_decode(
     # (S·K) ordering, B·C major and K minor, as the caches fold
     mem_flat = memory.reshape(S, *memory.shape[2:])
     mem_beam = torch.repeat_interleave(mem_flat, K, dim=0)  # (S·K, T, D)
-    cross_kvs = model.init_cross_kv(mem_beam[:, None])
+    with profiling.span("cross_kv"):
+        cross_kvs = model.init_cross_kv(mem_beam[:, None])
     self_kvs = model.empty_self_kvs(S * K, max_length, dev)
 
     NEG = -1e9
@@ -226,29 +238,35 @@ def beam_decode(
     base = (torch.arange(S, device=dev) * K)[:, None]
 
     pos = 0
-    while pos < max_length and not bool(done.all()):
-        tok = buf[:, :, pos].reshape(S * K, 1)
-        logits, new_kvs = model.decode_step(tok, pos, self_kvs, cross_kvs)
-        logp = torch.log_softmax(logits.to(torch.float32), dim=-1).reshape(S, K, V)
-        if pos < P:
-            forced = torch.full((V,), NEG, device=dev)
-            forced[prefix[pos]] = 0.0
-            logp = forced.expand(S, K, V)
-        # finished beams: only PAD continues, score frozen
-        logp = torch.where(done[:, :, None], pad_only[None, None], logp)
-        if pos == 0:  # only beam 0 is alive (identical beams would tie)
-            logp = logp + first_mask
-        cand = scores[:, :, None] + logp  # (S, K, V)
-        top_v, top_i = torch.topk(cand.reshape(S, K * V), K, dim=-1)
-        parent = top_i // V
-        token = top_i % V
-        self_kvs = reorder_cache_streams(new_kvs, (base + parent).reshape(-1))
-        buf = torch.gather(buf, 1, parent[:, :, None].expand(-1, -1, buf.shape[2]))
-        buf[:, :, pos + 1] = token
-        done = torch.gather(done, 1, parent) | (token == eos_id)
-        scores = top_v
-        pos += 1
-        beam_decode.steps += 1
+    with profiling.span("decode.beam"):
+        while pos < max_length:
+            with profiling.span("decode.done_read"):
+                finished = bool(done.all())
+            if finished:
+                break
+            tok = buf[:, :, pos].reshape(S * K, 1)
+            with profiling.span("decode.step"):
+                logits, new_kvs = model.decode_step(tok, pos, self_kvs, cross_kvs)
+            logp = torch.log_softmax(logits.to(torch.float32), dim=-1).reshape(S, K, V)
+            if pos < P:
+                forced = torch.full((V,), NEG, device=dev)
+                forced[prefix[pos]] = 0.0
+                logp = forced.expand(S, K, V)
+            # finished beams: only PAD continues, score frozen
+            logp = torch.where(done[:, :, None], pad_only[None, None], logp)
+            if pos == 0:  # only beam 0 is alive (identical beams would tie)
+                logp = logp + first_mask
+            cand = scores[:, :, None] + logp  # (S, K, V)
+            top_v, top_i = torch.topk(cand.reshape(S, K * V), K, dim=-1)
+            parent = top_i // V
+            token = top_i % V
+            self_kvs = reorder_cache_streams(new_kvs, (base + parent).reshape(-1))
+            buf = torch.gather(buf, 1, parent[:, :, None].expand(-1, -1, buf.shape[2]))
+            buf[:, :, pos + 1] = token
+            done = torch.gather(done, 1, parent) | (token == eos_id)
+            scores = top_v
+            pos += 1
+            beam_decode.steps += 1
 
     # best beam with the GNMT length penalty
     lengths = torch.sum(buf[:, :, 1:] != PAD_ID, dim=-1).to(torch.float32)
@@ -259,3 +277,4 @@ def beam_decode(
 
 
 beam_decode.steps = 0  # decode steps run since the last reset
+profiling.register("decode.beam_steps", lambda f=beam_decode: f.steps)

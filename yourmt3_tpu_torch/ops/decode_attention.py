@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from ..models.layers import distance_buckets, relative_position_bucket
+from ..utils import profiling
 from . import cuda_build
 
 NEG_INF = -1e30
@@ -180,6 +181,8 @@ def paged_decode_attention(
 
 
 paged_decode_attention.launches = 0  # kernel launches since the last reset
+profiling.register("kernel.paged_decode_attention.launches",
+                   lambda f=paged_decode_attention: f.launches)
 
 
 def decode_splits(pos: int):

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config.audio import AudioConfig
+from ..utils import profiling
 from . import cuda_build
 
 DFT_BLOCK = 32  # samples per partial DFT sum of the plain version
@@ -296,3 +297,5 @@ def fused_logmel(audio: torch.Tensor, basis_cos: torch.Tensor,
 
 
 fused_logmel.launches = 0  # kernel launches since the last reset
+profiling.register("kernel.fused_logmel.launches",
+                   lambda f=fused_logmel: f.launches)

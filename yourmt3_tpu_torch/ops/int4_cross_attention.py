@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import cuda_build
 from .decode_attention import _as_3d
 
@@ -79,3 +80,5 @@ def int4_cross_attention(
 
 
 int4_cross_attention.launches = 0  # kernel launches since the last reset
+profiling.register("kernel.int4_cross_attention.launches",
+                   lambda f=int4_cross_attention: f.launches)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import cuda_build
 
 SHAPE = (8, 128)
@@ -39,3 +40,5 @@ def launch_probe(x: torch.Tensor) -> torch.Tensor:
 
 
 launch_probe.launches = 0  # kernel launches since the last reset
+profiling.register("kernel.launch_probe.launches",
+                   lambda f=launch_probe: f.launches)

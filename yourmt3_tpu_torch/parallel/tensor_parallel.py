@@ -33,6 +33,8 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ModelAxis:
@@ -49,6 +51,9 @@ def _wide(x: torch.Tensor) -> torch.Tensor:
 
 
 traffic = {"all_reduce": 0, "all_gather": 0, "bytes": 0}
+profiling.register("tp.all_reduce", lambda: traffic["all_reduce"])
+profiling.register("tp.all_gather", lambda: traffic["all_gather"])
+profiling.register("tp.bytes", lambda: traffic["bytes"])
 
 
 def _count(kind: str, t: torch.Tensor) -> None:

@@ -15,6 +15,7 @@ import torch
 from ..config.audio import AudioConfig, DEFAULT_AUDIO
 from ..config.task import TaskConfig, get_task
 from ..config.vocabulary import DRUM_PROGRAM
+from ..utils import profiling
 from .codec import EventCodec
 from .dataclasses import Note
 from .event2note import (DecodeErrors, merge_multi_channel_token_ids_to_notes,
@@ -155,24 +156,25 @@ class TaskManager:
         before or without a `tie` token as dropped (see
         tokens/fast_detok.py).
         """
-        if fast:
-            if self._fast_detok is None:
-                from .fast_detok import FastDetokenizer
-                self._fast_detok = FastDetokenizer(self.codec)
-            return self._fast_detok.detokenize_song(
-                segment_ids, start_times,
-                default_programs=self.channel_default_programs)
-        if isinstance(segment_ids, torch.Tensor):
-            segment_ids = segment_ids.cpu().numpy()
-        segment_ids = np.asarray(segment_ids)
-        if segment_ids.ndim == 2:
-            segment_ids = segment_ids[:, None, :]
-        defaults = self.channel_default_programs
-        S, C, _ = segment_ids.shape
-        if C == 1:
-            return merge_segment_token_ids_to_notes(
-                [segment_ids[s, 0] for s in range(S)], list(start_times),
-                self.codec, default_program=defaults[0])
-        return merge_multi_channel_token_ids_to_notes(
-            [[segment_ids[s, c] for s in range(S)] for c in range(C)],
-            list(start_times), self.codec, default_programs=defaults)
+        with profiling.span("detokenize"):
+            if fast:
+                if self._fast_detok is None:
+                    from .fast_detok import FastDetokenizer
+                    self._fast_detok = FastDetokenizer(self.codec)
+                return self._fast_detok.detokenize_song(
+                    segment_ids, start_times,
+                    default_programs=self.channel_default_programs)
+            if isinstance(segment_ids, torch.Tensor):
+                segment_ids = segment_ids.cpu().numpy()
+            segment_ids = np.asarray(segment_ids)
+            if segment_ids.ndim == 2:
+                segment_ids = segment_ids[:, None, :]
+            defaults = self.channel_default_programs
+            S, C, _ = segment_ids.shape
+            if C == 1:
+                return merge_segment_token_ids_to_notes(
+                    [segment_ids[s, 0] for s in range(S)], list(start_times),
+                    self.codec, default_program=defaults[0])
+            return merge_multi_channel_token_ids_to_notes(
+                [[segment_ids[s, c] for s in range(S)] for c in range(C)],
+                list(start_times), self.codec, default_programs=defaults)

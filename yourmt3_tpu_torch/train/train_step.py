@@ -25,6 +25,7 @@ from ..models.ymt3 import YMT3, ce_loss, ce_sums, shift_right
 from ..ops.frontend import SpectrogramFrontend
 from ..parallel import mesh as pmesh
 from ..parallel.tensor_parallel import local
+from ..utils import profiling
 from .optim import GradientTransformation, Params, global_norm
 
 
@@ -137,34 +138,39 @@ def make_train_step(model: YMT3, frontend: SpectrogramFrontend,
     def train_step(state: TrainState, batch, gen: Optional[torch.Generator]):
         model.train()
         model.set_dropout_generator(gen, shard)
-        audio, labels = _device_batch(batch, dev)
+        with profiling.span("train.input"):
+            audio, labels = _device_batch(batch, dev)
         with torch.no_grad():
-            if pitch_shift_semitones is not None and "pitch_shift_idx" in batch:
-                from ..ops.pitchshift import batched_pitch_shift
-                audio = batched_pitch_shift(
-                    audio, torch.as_tensor(np.asarray(batch["pitch_shift_idx"])),
-                    tuple(pitch_shift_semitones))
-            feats = frontend(audio)
+            with profiling.span("train.frontend"):
+                if pitch_shift_semitones is not None and "pitch_shift_idx" in batch:
+                    from ..ops.pitchshift import batched_pitch_shift
+                    audio = batched_pitch_shift(
+                        audio, torch.as_tensor(np.asarray(batch["pitch_shift_idx"])),
+                        tuple(pitch_shift_semitones))
+                feats = frontend(audio)
             if augment_fn is not None:
-                feats = augment_fn(gen, feats, shard=shard)
+                with profiling.span("train.augment"):
+                    feats = augment_fn(gen, feats, shard=shard)
         applies = not accumulate or state.opt_state["mini_step"] == grad_accum_steps - 1
         with contextlib.nullcontext() if applies or tensor_parallel else net.no_sync():
-            logits = net(feats, shift_right(labels))
-            nll, correct, count = ce_sums(logits, labels, label_smoothing)
-            sums = [nll.detach(), correct, count]
-            if shift_id_range is not None:
-                lo, hi = shift_id_range
-                pred = logits.detach().argmax(-1)
-                sm = ((labels >= lo) & (labels < hi)).to(torch.float32)
-                near = ((pred - labels).abs() <= 5) & (pred >= lo) & (pred < hi)
-                sums += [((pred == labels).to(torch.float32) * sm).sum(), sm.sum(),
-                         (near.to(torch.float32) * sm).sum()]
-            sums = torch.stack(sums)
-            if group is not None:
-                dist.all_reduce(sums, group=group)
-            denom = torch.clamp(sums[2], min=1.0)
-            (nll / denom * world).backward()
-        with torch.no_grad():
+            with profiling.span("train.forward", dev):
+                logits = net(feats, shift_right(labels))
+                nll, correct, count = ce_sums(logits, labels, label_smoothing)
+                sums = [nll.detach(), correct, count]
+                if shift_id_range is not None:
+                    lo, hi = shift_id_range
+                    pred = logits.detach().argmax(-1)
+                    sm = ((labels >= lo) & (labels < hi)).to(torch.float32)
+                    near = ((pred - labels).abs() <= 5) & (pred >= lo) & (pred < hi)
+                    sums += [((pred == labels).to(torch.float32) * sm).sum(), sm.sum(),
+                             (near.to(torch.float32) * sm).sum()]
+                sums = torch.stack(sums)
+                if group is not None:
+                    dist.all_reduce(sums, group=group)
+                denom = torch.clamp(sums[2], min=1.0)
+            with profiling.span("train.backward", dev):
+                (nll / denom * world).backward()
+        with torch.no_grad(), profiling.span("train.optimizer", dev):
             metrics = {"loss": sums[0] / denom, "accuracy": sums[1] / denom}
             if not applies:
                 grads = {k: torch.zeros_like(params[k]) for k in names}

@@ -25,6 +25,7 @@ import torch
 from ..api import ModelBundle
 from ..ops.specaugment import SpecAugmentConfig, make_augment_fn
 from ..parallel import mesh
+from ..utils import profiling
 from .checkpoint import read_meta, restore_opt_state, save_bundle
 from .optim import make_optimizer
 from .train_step import TrainState, create_train_state, make_train_step
@@ -169,8 +170,9 @@ def train(
         return bool(flag.item())
 
     last = os.path.join(ckpt_dir, "last")
-    t0 = time.perf_counter()
-    tokens_seen = 0
+    # the logged rates cover the steps since the previous log, closed
+    # after the log's host reads (which wait for the device)
+    t_log, step_log, tokens_seen = time.perf_counter(), start_step, 0
     try:
         for step in range(start_step + 1, total_steps + 1):
             if preempted():
@@ -182,12 +184,15 @@ def train(
                 break
             batch = next(batch_iter)
             tokens_seen += int((np.asarray(batch["labels"]) != 0).sum())
-            state, metrics = step_fn(state, mesh.shard_batch(batch, group), gen)
+            with profiling.span("train.step"):
+                state, metrics = step_fn(state, mesh.shard_batch(batch, group), gen)
             if step % log_every == 0 or step == total_steps:
-                m = {k: float(v) for k, v in metrics.items()}
-                dt = time.perf_counter() - t0
-                m["steps_per_sec"] = (step - start_step) / dt
-                m["target_tokens_per_sec"] = tokens_seen / dt
+                with profiling.span("train.log"):
+                    m = {k: float(v) for k, v in metrics.items()}
+                now = time.perf_counter()
+                m["steps_per_sec"] = (step - step_log) / (now - t_log)
+                m["target_tokens_per_sec"] = tokens_seen / (now - t_log)
+                t_log, step_log, tokens_seen = now, step, 0
                 logger.log(step, m)
                 sh = (f" shift={m['shift_accuracy']:.3f}"
                       if "shift_accuracy" in m else "")
