@@ -1416,13 +1416,16 @@ def eval_path(tmp, dev, smi):
 
 class Top2Recorder:
     """Wraps a model's decode_step while active: keeps each step's top two
-    logits per stream, (steps, S, 2)."""
+    logits per stream, (steps, S, 2). The decode loops take their eager
+    step meanwhile: a replayed CUDA graph of the step does not call
+    decode_step from Python (the tokens are the same)."""
 
     def __init__(self, model):
         self.model, self.rows = model, []
 
     def __enter__(self):
         import torch
+        from yourmt3_tpu_torch.models import decoding
         step = self.model.decode_step
 
         def recording(*a, **kw):
@@ -1431,10 +1434,14 @@ class Top2Recorder:
             return logits, kvs
 
         self.model.decode_step = recording
+        self.graphable = decoding._graphable
+        decoding._graphable = lambda *a: False
         return self
 
     def __exit__(self, *exc):
+        from yourmt3_tpu_torch.models import decoding
         del self.model.decode_step
+        decoding._graphable = self.graphable
 
     def values(self):
         import torch

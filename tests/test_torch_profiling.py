@@ -188,6 +188,8 @@ def test_counters_are_the_attributes(monkeypatch):
             ("decode.beam_steps", decoding.beam_decode, "steps"),
             ("decode.early_exit_compactions", decoding.greedy_decode_early_exit,
              "compactions"),
+            ("decode.graph_captures", decoding._Stepper, "captures"),
+            ("decode.graph_replays", decoding._Stepper, "replays"),
             ("kernel.paged_decode_attention.launches",
              decode_attention.paged_decode_attention, "launches"),
             ("kernel.int4_cross_attention.launches",
@@ -200,6 +202,25 @@ def test_counters_are_the_attributes(monkeypatch):
         monkeypatch.setitem(tensor_parallel.traffic, kind, 7 + i)
         want["tp." + kind] = 7 + i
     assert profiling.counters() == want
+
+
+def test_a_replay_advances_the_kernel_counters(monkeypatch):
+    """`add_launches` moves the wrappers' attributes, so the registry, the
+    benchmark and chip_smoke.py's launch checks count a CUDA graph's
+    replayed launches too."""
+    monkeypatch.setattr(int4_cross_attention.int4_cross_attention, "launches", 5)
+    monkeypatch.setattr(fused_logmel.fused_logmel, "launches", 0)
+    before = profiling.launches()
+    assert before["int4_cross_attention"] == 5 and before["fused_logmel"] == 0
+    profiling.add_launches({"int4_cross_attention": 8})
+    profiling.add_launches({"int4_cross_attention": 8, "fused_logmel": 1})
+    assert int4_cross_attention.int4_cross_attention.launches == 21
+    got = profiling.counters()
+    assert got["kernel.int4_cross_attention.launches"] == 21
+    assert got["kernel.fused_logmel.launches"] == 1
+    assert set(profiling.launches()) == {
+        "paged_decode_attention", "int4_cross_attention", "fused_logmel",
+        "launch_probe"}
 
 
 def test_idle_by_span_on_synthetic_intervals():

@@ -192,6 +192,9 @@ def transcribe_segments_array(
                                         phases=decode_phases, cross_kvs=cross_kvs,
                                         repetition_guard=repetition_guard)
             all_ids.append(ids[: len(block)])
+            # the block's memory and cross K/V are dead: not held through
+            # the next block's encode and the repair's beam search
+            memory = cross_kvs = None
         seg_ids = torch.cat(all_ids)  # (S, C, L) on the device
         notes, errors = tm.detokenize_song(seg_ids, list(start_times))
         if repair_beam > 1 and beam_size == 1 and errors.total() > 0:

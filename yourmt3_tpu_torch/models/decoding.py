@@ -1,19 +1,30 @@
 """Autoregressive greedy and beam decode.
 
 The token loop is a Python loop over positions: each step runs
-`YMT3.decode_step` for every stream, whose self caches are updated in
-place. The host reads the "all done" flag only once every `unroll` steps,
-so the steps between two reads can be captured as one CUDA graph later;
-finished streams emit PAD, so the extra steps leave the tokens unchanged.
-Channels are folded into the batch by the caller's model, so one loop
-serves single- and multi-channel decoders. `greedy_decode_early_exit`
-runs the same step in chunks and drops finished streams from the batch
+`YMT3.decode_step` for every stream, chooses the next tokens and updates
+the loop's state in place (decoder inputs, done flags, self caches and,
+in a beam search, scores). The host reads the "all done" flag once every
+`unroll` steps; finished streams emit PAD, so the extra steps leave the
+tokens unchanged. Channels are folded into the batch by the caller's
+model, so one loop serves single- and multi-channel decoders.
+
+With the memory on a CUDA device and dense self caches, a decode call
+runs the steps that take host branches eagerly (the forced prefix, the
+beam's first step), then captures one step as a CUDA graph on the loop's
+state, with the position in a 0-dim device tensor that the graph advances
+itself, and replays it at every later position: the host launches one
+graph a step instead of each of the step's kernels. The graph and its
+memory pool live for the one call (`greedy_decode` captures once per
+phase). Paged self caches (their kernels take the position as a host
+scalar), the CPU and a decode inside another capture run every step
+eagerly, through the same step function. `greedy_decode_early_exit` runs
+the eager step in chunks and drops finished streams from the batch
 between chunks.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,47 +50,164 @@ class _GreedyState:
         self.pos = 0
 
 
+def _column(buf: torch.Tensor, pos) -> torch.Tensor:
+    """buf[..., pos:pos + 1]; pos a host int or a 0-dim device tensor."""
+    if isinstance(pos, torch.Tensor):
+        return buf.index_select(buf.ndim - 1, pos.view(1))
+    return buf[..., pos:pos + 1]
+
+
+def _put_column(buf: torch.Tensor, pos, values: torch.Tensor) -> None:
+    """buf[..., pos] = values; pos as in `_column`."""
+    if isinstance(pos, torch.Tensor):
+        buf.index_copy_(buf.ndim - 1, pos.view(1), values[..., None])
+    else:
+        buf[..., pos] = values
+
+
+def _decode(model: YMT3, tok: torch.Tensor, pos, self_kvs, cross_kvs,
+            kv_len: int = 0) -> torch.Tensor:
+    """model.decode_step's logits. An eager step's model call is the span
+    `decode.step`; a graphed step's span is around its replay."""
+    if isinstance(pos, torch.Tensor):
+        return model.decode_step(tok, pos, self_kvs, cross_kvs, kv_len=kv_len)[0]
+    with profiling.span("decode.step"):
+        return model.decode_step(tok, pos, self_kvs, cross_kvs, kv_len=kv_len)[0]
+
+
+def _graphable(memory: torch.Tensor, self_kvs) -> bool:
+    """Whether a decode loop replays its step as a CUDA graph: the memory
+    is on a CUDA device, the self caches are dense and no capture is
+    running already."""
+    cache = self_kvs[0][0]
+    if isinstance(cache, tuple):
+        cache = cache[0]
+    return (memory.is_cuda and cache.ndim == 4
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class _Stepper:
+    """Runs a decode loop's `step(pos)` at each host position: eagerly
+    below `eager_until` (where the step takes host branches) or when
+    `graphed` is False; from there on by replaying one CUDA graph of it,
+    captured at the first such position on the loop's static state, with
+    the position in a 0-dim int64 tensor on `device` that the graph
+    advances. A replay adds the kernel launches its capture recorded to
+    the launch counters, which the kernels' wrappers advance only when
+    Python calls them. Used as a context manager around the loop: on exit
+    it frees the graph and clears cuBLAS's workspaces, since the capture
+    stream's workspace lies in the graph's memory pool and would otherwise
+    stay allocated after the call."""
+
+    captures = 0  # graph captures and replays since the last reset
+    replays = 0
+
+    def __init__(self, step: Callable, graphed: bool, eager_until: int,
+                 device: torch.device):
+        self.step, self.graphed, self.eager_until = step, graphed, eager_until
+        self.device = device
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.pos: Optional[torch.Tensor] = None  # the graph reads it: keep it
+        self.launches: Dict[str, int] = {}
+
+    def __enter__(self) -> "_Stepper":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.graph is not None:
+            torch.cuda.current_stream(self.device).synchronize()  # last replay
+            self.graph = self.pos = None
+            torch._C._cuda_clearCublasWorkspaces()
+        return False
+
+    def __call__(self, pos: int) -> None:
+        if not self.graphed or pos < self.eager_until:
+            self.step(pos)
+            return
+        if self.graph is None:
+            with profiling.span("decode.capture"):
+                self._capture(pos)
+        with profiling.span("decode.step"):
+            self.graph.replay()
+        profiling.add_launches(self.launches)
+        _Stepper.replays += 1
+
+    def _capture(self, pos: int) -> None:
+        self.pos = torch.full((), pos, dtype=torch.long, device=self.device)
+        before = profiling.launches()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device), torch.cuda.graph(self.graph):
+            self.step(self.pos)
+            self.pos.add_(1)
+        after = profiling.launches()
+        self.launches = {n: c - before.get(n, 0) for n, c in after.items()
+                         if c != before.get(n, 0)}
+        profiling.add_launches({n: -c for n, c in self.launches.items()})
+        _Stepper.captures += 1
+
+
+profiling.register("decode.graph_captures", lambda: _Stepper.captures)
+profiling.register("decode.graph_replays", lambda: _Stepper.replays)
+
+
+def _greedy_step(model: YMT3, st: _GreedyState, pos, cross_kvs,
+                 prefix: List[int], eos_id: int, kv_len: int, ban_eos: bool,
+                 repetition_guard: int) -> None:
+    """One greedy step on `st` in place: the next token of every stream
+    into `st.buf` at pos + 1, the done flags and the repetition guard's
+    run lengths. pos: a host int, or the device position of a captured
+    step, which lies past the forced prefix and position 0."""
+    host = not isinstance(pos, torch.Tensor)
+    buf, done = st.buf, st.done
+    tok = _column(buf, pos)
+    logits = _decode(model, tok, pos, st.self_kvs, cross_kvs, kv_len)
+    if ban_eos:
+        logits[:, eos_id] = -1e9
+    nxt = torch.argmax(logits, dim=-1)
+    forced = host and pos < len(prefix)
+    if forced:
+        nxt = torch.full_like(nxt, prefix[pos])
+    if repetition_guard > 0:
+        if forced:
+            st.rep.zero_()
+            st.rep2.zero_()
+        else:
+            live = ~done
+            st.rep.copy_(torch.where(live & (nxt == tok[:, 0]), st.rep + 1, 1))
+            if host and pos < 1:
+                in_cycle = torch.zeros_like(live)
+            else:
+                in_cycle = live & (nxt == _column(buf, pos - 1)[:, 0])
+            st.rep2.copy_(torch.where(in_cycle, st.rep2 + 1, 1))
+            trip = (st.rep >= repetition_guard) | (
+                st.rep2 >= 2 * repetition_guard)
+            nxt = torch.where(trip & live, eos_id, nxt)
+    nxt = torch.where(done, PAD_ID, nxt)
+    done |= nxt == eos_id
+    _put_column(buf, pos + 1, nxt)
+
+
 def _greedy_steps(model: YMT3, st: _GreedyState, limit: int, cross_kvs,
                   prefix: List[int], eos_id: int, kv_len: int = 0,
                   unroll: int = 1, ban_eos: bool = False,
-                  repetition_guard: int = 0) -> None:
+                  repetition_guard: int = 0, graphed: bool = False) -> None:
     """Run greedy steps on `st` in place until `limit` or until every
-    stream is done, reading "all done" on the host every `unroll` steps."""
-    P = len(prefix)
-    with profiling.span("decode.greedy"):
+    stream is done, reading "all done" on the host every `unroll` steps.
+    graphed: replay one capture of the step past the forced prefix and
+    position 0 (`_Stepper`)."""
+    def step(pos):
+        _greedy_step(model, st, pos, cross_kvs, prefix, eos_id, kv_len,
+                     ban_eos, repetition_guard)
+
+    with _Stepper(step, graphed, max(len(prefix), 1), st.buf.device) as run, \
+            profiling.span("decode.greedy"):
         while st.pos < limit:
             with profiling.span("decode.done_read"):
                 finished = bool(st.done.all())
             if finished:
                 break
             for _ in range(unroll):
-                pos, buf, done = st.pos, st.buf, st.done
-                tok = buf[:, pos:pos + 1]
-                with profiling.span("decode.step"):
-                    logits, st.self_kvs = model.decode_step(tok, pos, st.self_kvs,
-                                                            cross_kvs, kv_len=kv_len)
-                if ban_eos:
-                    logits[:, eos_id] = -1e9
-                nxt = torch.argmax(logits, dim=-1)
-                if pos < P:
-                    nxt = torch.full_like(nxt, prefix[pos])
-                if repetition_guard > 0:
-                    if pos < P:
-                        st.rep = torch.zeros_like(st.rep)
-                        st.rep2 = torch.zeros_like(st.rep2)
-                    else:
-                        live = ~done
-                        st.rep = torch.where(live & (nxt == tok[:, 0]), st.rep + 1, 1)
-                        in_cycle = live & (nxt == buf[:, max(pos - 1, 0)])
-                        if pos < 1:
-                            in_cycle = torch.zeros_like(in_cycle)
-                        st.rep2 = torch.where(in_cycle, st.rep2 + 1, 1)
-                        trip = (st.rep >= repetition_guard) | (
-                            st.rep2 >= 2 * repetition_guard)
-                        nxt = torch.where(trip & live, eos_id, nxt)
-                nxt = torch.where(done, PAD_ID, nxt)
-                st.done = done | (nxt == eos_id)
-                buf[:, pos + 1] = nxt
+                run(st.pos)
                 st.pos += 1
                 greedy_decode.steps += 1
 
@@ -113,13 +241,14 @@ def greedy_decode(
         cross_kvs = model.init_cross_kv(memory)
     st = _GreedyState(model, B * C, max_length, memory.device)
     prefix = list(prefix_ids or [])
+    graphed = _graphable(memory, st.self_kvs)
     span = max_length // phases
     for p in range(phases):
         limit = (p + 1) * span
         _greedy_steps(model, st, limit, cross_kvs, prefix, eos_id,
                       kv_len=0 if limit == max_length else limit,
                       unroll=unroll, ban_eos=ban_eos,
-                      repetition_guard=repetition_guard)
+                      repetition_guard=repetition_guard, graphed=graphed)
     return st.buf[:, 1:].reshape(B, C, max_length)
 
 
@@ -199,6 +328,17 @@ def reorder_cache_streams(kvs, parent: torch.Tensor):
     return torch.index_select(kvs, 1 if kvs.ndim == 5 else 0, parent)
 
 
+def _reorder_cache_streams_(kvs, parent: torch.Tensor) -> None:
+    """`reorder_cache_streams` in place, one tensor at a time: the caches
+    keep their storage (a graphed step's static state) and the temporary
+    is one tensor, not a copy of every cache."""
+    if isinstance(kvs, (list, tuple)):
+        for x in kvs:
+            _reorder_cache_streams_(x, parent)
+    else:
+        kvs.copy_(reorder_cache_streams(kvs, parent))
+
+
 def beam_decode(
     model: YMT3,
     memory: torch.Tensor,  # (B, C, T, D)
@@ -237,34 +377,38 @@ def beam_decode(
     first_mask = (torch.arange(K, device=dev) > 0).to(torch.float32)[None, :, None] * NEG
     base = (torch.arange(S, device=dev) * K)[:, None]
 
+    def step(pos):
+        host = not isinstance(pos, torch.Tensor)
+        tok = _column(buf, pos).reshape(S * K, 1)
+        logits = _decode(model, tok, pos, self_kvs, cross_kvs)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1).reshape(S, K, V)
+        if host and pos < P:
+            forced = torch.full((V,), NEG, device=dev)
+            forced[prefix[pos]] = 0.0
+            logp = forced.expand(S, K, V)
+        # finished beams: only PAD continues, score frozen
+        logp = torch.where(done[:, :, None], pad_only[None, None], logp)
+        if host and pos == 0:  # only beam 0 is alive (identical beams would tie)
+            logp = logp + first_mask
+        cand = scores[:, :, None] + logp  # (S, K, V)
+        top_v, top_i = torch.topk(cand.reshape(S, K * V), K, dim=-1)
+        parent = top_i // V
+        token = top_i % V
+        _reorder_cache_streams_(self_kvs, (base + parent).reshape(-1))
+        buf.copy_(torch.gather(buf, 1, parent[:, :, None].expand(-1, -1, buf.shape[2])))
+        _put_column(buf, pos + 1, token)
+        done.copy_(torch.gather(done, 1, parent) | (token == eos_id))
+        scores.copy_(top_v)
+
     pos = 0
-    with profiling.span("decode.beam"):
+    with _Stepper(step, _graphable(memory, self_kvs), max(P, 1), dev) as run, \
+            profiling.span("decode.beam"):
         while pos < max_length:
             with profiling.span("decode.done_read"):
                 finished = bool(done.all())
             if finished:
                 break
-            tok = buf[:, :, pos].reshape(S * K, 1)
-            with profiling.span("decode.step"):
-                logits, new_kvs = model.decode_step(tok, pos, self_kvs, cross_kvs)
-            logp = torch.log_softmax(logits.to(torch.float32), dim=-1).reshape(S, K, V)
-            if pos < P:
-                forced = torch.full((V,), NEG, device=dev)
-                forced[prefix[pos]] = 0.0
-                logp = forced.expand(S, K, V)
-            # finished beams: only PAD continues, score frozen
-            logp = torch.where(done[:, :, None], pad_only[None, None], logp)
-            if pos == 0:  # only beam 0 is alive (identical beams would tie)
-                logp = logp + first_mask
-            cand = scores[:, :, None] + logp  # (S, K, V)
-            top_v, top_i = torch.topk(cand.reshape(S, K * V), K, dim=-1)
-            parent = top_i // V
-            token = top_i % V
-            self_kvs = reorder_cache_streams(new_kvs, (base + parent).reshape(-1))
-            buf = torch.gather(buf, 1, parent[:, :, None].expand(-1, -1, buf.shape[2]))
-            buf[:, :, pos + 1] = token
-            done = torch.gather(done, 1, parent) | (token == eos_id)
-            scores = top_v
+            run(pos)
             pos += 1
             beam_decode.steps += 1
 

@@ -10,7 +10,9 @@ hidden states.
 
 Decoding uses explicit caches: `init_cross_kv` projects the encoder
 memory once per segment batch, `decode_step` runs one token for every
-stream and writes its K/V into the self caches in place. The paged
+stream and writes its K/V into the self caches in place. On the dense
+self-cache paths the position may be a 0-dim tensor on the device, so
+that one CUDA graph of the step serves every position. The paged
 self-attention paths hand the bucket table to the decode-attention kernel
 (ops/decode_attention.py), which builds the bias itself; with
 kv_quant="int8c4p" the cross-attention runs through the int4 kernel
@@ -55,6 +57,17 @@ def make_ff(cfg: ModelConfig, dtype: torch.dtype) -> nn.Module:
         return MoEFeedForward(8, cfg.d_model, cfg.d_ff, dtype)
     return FeedForward(cfg.d_model, cfg.d_ff, cfg.ff_act, dtype,
                        dropout_rate=cfg.dropout_rate)
+
+
+def write_position(cache: torch.Tensor, pos, step: torch.Tensor) -> None:
+    """cache[:, :, pos] = step[:, :, 0] for a dense (S, H, L, ...) cache and
+    a (S, H, 1, ...) step. pos: a host int, or a 0-dim int64 tensor on the
+    cache's device, which `index_copy_` reads there (a CUDA graph of the
+    step then serves every position)."""
+    if isinstance(pos, torch.Tensor):
+        cache.index_copy_(2, pos.view(1), step.to(cache.dtype))
+    else:
+        cache[:, :, pos] = step[:, :, 0]
 
 
 class T5LayerSelfAttention(nn.Module):
@@ -162,9 +175,11 @@ class T5DecoderLayer(nn.Module):
         return y + self.dropout(ff.DenseReluDense(ff.layer_norm(y)))
 
     # ---- single-step decode with external caches ----------------------
-    def decode_step(self, y: torch.Tensor, self_kv, pos: int, cross_kv,
+    def decode_step(self, y: torch.Tensor, self_kv, pos, cross_kv,
                     step_bias, kv_len: int = 0):
-        """y: (S, 1, D). pos: the lockstep position (host int).
+        """y: (S, 1, D). pos: the lockstep position, a host int or, on the
+        dense self-cache paths, a 0-dim int64 tensor on the caches' device
+        (the paged kernels take it as a host scalar).
         step_bias: (1, H, 1, L) rel-bias row + causal mask (dense paths) or
         ("table", (buckets, H) table, distance buckets) for the kernel.
         kv_len: read horizon of the dense self-attention paths (0 = full
@@ -203,10 +218,8 @@ class T5DecoderLayer(nn.Module):
                              else (quantize_kv, int8_decode_attention))
             kq_s, ks_s = quant(k_step)
             vq_s, vs_s = quant(v_step)
-            ck[0][:, :, pos] = kq_s[:, :, 0]
-            ck[1][:, :, pos] = ks_s[:, :, 0]
-            cv[0][:, :, pos] = vq_s[:, :, 0]
-            cv[1][:, :, pos] = vs_s[:, :, 0]
+            for cache, step in zip((*ck, *cv), (kq_s, ks_s, vq_s, vs_s)):
+                write_position(cache, pos, step)
             n = kv_len or ck[0].shape[2]
             att = attend(q, ck[0][:, :, :n], ck[1][:, :, :n],
                          cv[0][:, :, :n], cv[1][:, :, :n], step_bias)
@@ -219,8 +232,8 @@ class T5DecoderLayer(nn.Module):
                 rel_max_distance=cfg.rel_attn_max_distance,
                 dist_buckets=step_bias[2])
         else:
-            ck[:, :, pos] = k_step[:, :, 0]
-            cv[:, :, pos] = v_step[:, :, 0]
+            write_position(ck, pos, k_step)
+            write_position(cv, pos, v_step)
             n = kv_len or ck.shape[2]
             att = dot_product_attention(q, ck[:, :, :n], cv[:, :, :n],
                                         step_bias)
@@ -310,8 +323,9 @@ class T5Decoder(nn.Module):
                        for k, v in kvs]
         return kvs
 
-    def step_bias(self, pos: int, L: int) -> torch.Tensor:
-        """(1, H, 1, L) bias + causal mask for query position `pos`."""
+    def step_bias(self, pos, L: int) -> torch.Tensor:
+        """(1, H, 1, L) bias + causal mask for query position `pos` (a host
+        int or a 0-dim int64 tensor on the table's device)."""
         table = self.rel_bias.weight
         j = torch.arange(L, device=table.device, dtype=torch.int32)
         buckets = relative_position_bucket(
@@ -322,9 +336,10 @@ class T5Decoder(nn.Module):
         mask = torch.where(j > pos, NEG_INF, 0.0).to(table.dtype)
         return bias + mask[None, None, None, :]
 
-    def decode_step(self, y: torch.Tensor, pos: int, self_kvs: List,
+    def decode_step(self, y: torch.Tensor, pos, self_kvs: List,
                     cross_kvs: List, kv_len: int = 0):
-        """y: (S, 1, D) embedded current tokens; pos: host int.
+        """y: (S, 1, D) embedded current tokens; pos: host int, or a 0-dim
+        int64 tensor on the caches' device on the dense self-cache paths.
         → ((S, 1, D) final-normed hidden, self caches)."""
         if self.cfg.use_pallas_decode:
             rel = self.rel_bias

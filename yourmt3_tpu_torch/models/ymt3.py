@@ -122,9 +122,11 @@ class YMT3(nn.Module):
             return self.decoder.init_cross_kv(memory)
         return self.decoder.init_cross_kv(memory[:, 0])
 
-    def decode_step(self, token_ids: torch.Tensor, pos: int, self_kvs: List,
+    def decode_step(self, token_ids: torch.Tensor, pos, self_kvs: List,
                     cross_kvs: List, kv_len: int = 0):
-        """token_ids (S, 1) → ((S, vocab) fp32 logits, self caches)."""
+        """token_ids (S, 1) → ((S, vocab) fp32 logits, self caches). pos: a
+        host int, or a 0-dim int64 tensor on the caches' device where the
+        self caches are dense (T5Decoder.decode_step)."""
         h, kvs = self.decoder.decode_step(self.embed(token_ids), pos,
                                           self_kvs, cross_kvs, kv_len=kv_len)
         return self.lm_head(h).to(torch.float32)[:, 0, :], kvs

@@ -181,8 +181,7 @@ def paged_decode_attention(
 
 
 paged_decode_attention.launches = 0  # kernel launches since the last reset
-profiling.register("kernel.paged_decode_attention.launches",
-                   lambda f=paged_decode_attention: f.launches)
+profiling.register_kernel("paged_decode_attention", paged_decode_attention)
 
 
 def decode_splits(pos: int):

@@ -297,5 +297,4 @@ def fused_logmel(audio: torch.Tensor, basis_cos: torch.Tensor,
 
 
 fused_logmel.launches = 0  # kernel launches since the last reset
-profiling.register("kernel.fused_logmel.launches",
-                   lambda f=fused_logmel: f.launches)
+profiling.register_kernel("fused_logmel", fused_logmel)

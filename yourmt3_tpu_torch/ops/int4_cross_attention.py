@@ -80,5 +80,4 @@ def int4_cross_attention(
 
 
 int4_cross_attention.launches = 0  # kernel launches since the last reset
-profiling.register("kernel.int4_cross_attention.launches",
-                   lambda f=int4_cross_attention: f.launches)
+profiling.register_kernel("int4_cross_attention", int4_cross_attention)

@@ -40,5 +40,4 @@ def launch_probe(x: torch.Tensor) -> torch.Tensor:
 
 
 launch_probe.launches = 0  # kernel launches since the last reset
-profiling.register("kernel.launch_probe.launches",
-                   lambda f=launch_probe: f.launches)
+profiling.register_kernel("launch_probe", launch_probe)

@@ -18,7 +18,9 @@ the kernels' timeline.
 The latest 2**16 spans are kept in memory (`spans()`, `clear()`;
 `dropped()` counts those the bound pushed out). `counters()` is a snapshot
 of the counts the port keeps, each registered once by the module that
-keeps it (`register`). `trace(log_dir)` runs the profiler with its
+keeps it (`register`; a hand-written kernel's launches by
+`register_kernel`, which `launches()` reads and `add_launches` advances
+for the launches a CUDA graph's replay runs). `trace(log_dir)` runs the profiler with its
 TensorBoard/Chrome handler and, on exit, prints and keeps the operator's
 summary: the device's busy and idle share, idle seconds by the innermost
 span open at each gap's middle, the spans by name and each counter's
@@ -47,6 +49,7 @@ _lock = threading.Lock()
 _local = threading.local()
 _ids = itertools.count(1)
 _counters: Dict[str, Callable[[], int]] = {}
+_kernels: Dict[str, Callable] = {}  # name → wrapper that counts `.launches`
 
 
 class Span:
@@ -198,6 +201,25 @@ def register(name: str, count: Callable[[], int]) -> None:
 def counters() -> Dict[str, int]:
     """A snapshot of every registered count, by name."""
     return {name: int(count()) for name, count in sorted(_counters.items())}
+
+
+def register_kernel(name: str, launch) -> None:
+    """Count `launch.launches`, the launches of a hand-written kernel's
+    wrapper, as the counter `kernel.<name>.launches`."""
+    _kernels[name] = launch
+    register(f"kernel.{name}.launches", lambda: launch.launches)
+
+
+def launches() -> Dict[str, int]:
+    """Each registered kernel's launches so far, by name."""
+    return {name: launch.launches for name, launch in _kernels.items()}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add launches that ran without their wrapper: a CUDA graph's replay
+    runs the launches its capture recorded."""
+    for name, n in counts.items():
+        _kernels[name].launches += n
 
 
 # ---------------------------------------------------------------------------
