@@ -87,5 +87,14 @@ def int4_cross_call(streams: int, heads: int, dk: int, T: int):
     return nbytes, 4 * streams * heads * T * dk
 
 
+def paged_decode_call(streams: int, heads: int, dk: int, live: int):
+    """(bytes, operations) of one self-attention read of `live` cached
+    positions through the int8 paged cache: bf16 q and out, int8 K and V
+    and their fp32 row scales, each moved once; q·k and w·v multiply-adds.
+    The work any kernel must do, not the split-KV partials of one."""
+    nbytes = 2 * streams * heads * dk * 2 + 2 * streams * heads * live * (dk + 4)
+    return nbytes, 4 * streams * heads * live * dk
+
+
 def least_time(nbytes: float, ops: float, peak_ops: float = PEAK_FP32) -> float:
     return max(nbytes / HBM_BYTES_PER_S, ops / peak_ops)

@@ -4,14 +4,15 @@ time, as one user transcribes a playlist.
 Set-up builds the bundle (harness/bundle.py) with the configuration's
 decode settings, writes the traffic's seeded songs as float WAVs under the
 run's directory and warms every shape the window uses: an encoder batch,
-a decode step of the greedy batch and of the beam batch on full-length
-caches, `warm_steps` greedy and beam steps and the fast detokenizer, then
-freezes the objects it made out of the garbage collector's way. The
-window starts songs back to back while less than `seconds` has passed and
-closes when the last one is done; its rate is their audio over its whole
-time. A traced run measures the same window untraced, for the host-clock
-metrics, and then traces songs for the traffic's `trace_seconds` more (0:
-one song), for the device metrics.
+decode steps of the greedy batch and of the beam batch on full-length
+caches at the first and the last position (a paged cache's widest
+split-KV read and its merge), `warm_steps` greedy and beam steps and the
+fast detokenizer, then freezes the objects it made out of the garbage
+collector's way. The window starts songs back to back while less than
+`seconds` has passed and closes when the last one is done; its rate is
+their audio over its whole time. A traced run measures the same window
+untraced, for the host-clock metrics, and then traces songs for the
+traffic's `trace_seconds` more (0: one song), for the device metrics.
 
 The program's own functions are wrapped, from here, to see what the
 window produced: the segment blocks of each pass (`api._padded_batches`),
@@ -135,8 +136,9 @@ def warm_up(bundle, traffic: dict) -> None:
             kvs = model.empty_self_kvs(streams * beam, L)
             tok = torch.zeros((streams * beam, 1), dtype=torch.long,
                               device=memory.device)
-            logits, kvs = model.decode_step(tok, 0, kvs, cross)
-            torch.argmax(logits, dim=-1)
+            for pos in (0, L - 1):  # the first and the widest read of the cache
+                logits, kvs = model.decode_step(tok, pos, kvs, cross)
+                torch.argmax(logits, dim=-1)
         api.greedy_decode(model, memory, traffic["warm_steps"])
         api.beam_decode(model, memory, traffic["warm_steps"],
                         beam_size=traffic["repair_beam"])

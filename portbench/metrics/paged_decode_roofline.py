@@ -1,0 +1,27 @@
+"""The int8 paged decode kernel's share of its roofline: over every decode
+call of the traced songs, every step p and every decoder layer, the least
+time of one self-attention read of the p + 1 live positions (bytes over
+HBM bandwidth or fp32 operations over the fp32 peak, counts/flops.py, over
+the padded rows' streams and beams), over the device time of the split
+and merge kernels named here, in %."""
+
+from counts import flops
+
+KERNELS = ("paged_decode_kernel", "paged_decode_merge_kernel")
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    launches, seconds = run.trace.kernel_seconds(KERNELS)
+    if not launches or seconds <= 0:
+        return None
+    cfg = run.cell.config["model"]
+    least = 0.0
+    for c in (c for c in run.calls if c["traced"]):
+        streams = c["rows"] * c["channels"] * c["beam"]
+        for p in range(c["steps"]):
+            nbytes, ops = flops.paged_decode_call(streams, cfg["num_heads"], cfg["d_kv"],
+                                                  p + 1)
+            least += cfg["num_decoder_layers"] * flops.least_time(nbytes, ops)
+    return 100.0 * least / seconds

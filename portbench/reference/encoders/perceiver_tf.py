@@ -117,8 +117,9 @@ def encode(p, feats, cfg, drop, num=FP32):
     return linear(g, p["projection.group_proj.weight"], num)
 
 
-def shapes(cfg: dict) -> dict:
-    """The encoder's and the projection's names and shapes."""
+def shapes(cfg: dict, audio: dict) -> dict:
+    """The encoder's and the projection's names and shapes (the conv
+    pre-encoder takes one input channel, whatever the audio)."""
     D, dm, K, C = cfg["ptf_d_latent"], cfg["d_model"], cfg["ptf_num_latents"], cfg[
         "num_channels"]
     cc = cfg["conv_channels"]

@@ -327,7 +327,8 @@ def param_shapes(config: dict) -> Dict[str, tuple]:
     cfg = config["model"]
     dm, dkv, H, vocab = cfg["d_model"], cfg["d_kv"], cfg["num_heads"], cfg["vocab_size"]
     s = {"shared.weight": (vocab, dm), "lm_head.weight": (vocab, dm),
-         "decoder.final_layer_norm.weight": (dm,), **encoder_of(config).shapes(cfg)}
+         "decoder.final_layer_norm.weight": (dm,),
+         **encoder_of(config).shapes(cfg, config["audio"])}
 
     def attn(pre, d, inner):
         for n in "qkv":

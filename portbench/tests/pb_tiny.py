@@ -8,8 +8,8 @@ import copy
 from harness import core
 
 TINY_MODEL = dict(d_model=64, d_kv=16, num_heads=4, d_ff=128,
-                  num_decoder_layers=2, ptf_d_latent=64, ptf_num_blocks=1,
-                  conv_channels=8)
+                  num_encoder_layers=2, num_decoder_layers=2, ptf_d_latent=64,
+                  ptf_num_blocks=1, conv_channels=8)
 
 
 def tiny_cell(name: str, **traffic) -> core.Cell:

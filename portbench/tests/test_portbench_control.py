@@ -13,7 +13,7 @@ from harness import core
 from reference import model as ref
 from pb_tiny import tiny_cell
 
-WORKLOADS = ["mc13.transcribe", "mc13.train", "moe.train"]
+WORKLOADS = ["mc13.transcribe", "mc13.train", "moe.train", "t5_small.transcribe"]
 
 
 def control_fails(cell, device, seed) -> bool:

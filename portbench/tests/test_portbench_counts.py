@@ -83,3 +83,41 @@ def test_trace_busy_is_the_union_and_gaps_go_to_the_open_span():
     assert s.kernel_seconds(("a", "b")) == (3, pytest.approx(50e-9))
     assert s.gaps_by_span == {"outer": pytest.approx(35e-9), "inner": pytest.approx(20e-9)}
     assert s.breakdown()["device_ops"][0][0] == "a"
+
+
+def test_t5_encoder_by_hand():
+    cfg = dict(CFG, num_heads=2, d_kv=3, num_encoder_layers=2)
+    T, f, dm, inner, dff = 8, 16, 6, 6, 5
+    per_frame = 2 * f * dm + 2 * (8 * dm * inner + 4 * T * inner + 6 * dm * dff)
+    t5 = {"encoder": "t5", "model": cfg, "audio": AUDIO}
+    assert flops.encoder_forward(t5, 3) == 3 * T * per_frame
+
+
+def test_paged_decode_call_bytes_and_operations():
+    nbytes, ops = flops.paged_decode_call(streams=2, heads=3, dk=4, live=5)
+    qo = 2 * 2 * 3 * 4 * 2  # bf16 q and out
+    kv = 2 * 2 * 3 * 5 * 4  # int8 K and V
+    scales = 2 * 2 * 3 * 5 * 4  # their fp32 row scales
+    assert nbytes == qo + kv + scales
+    assert ops == 4 * 2 * 3 * 5 * 4
+
+
+def test_paged_roofline_sums_every_step_and_layer():
+    import types
+    from harness.trace import Summary
+    from harness.core import reader
+    read = reader("paged_decode_roofline")
+    cfg = {"num_heads": 3, "d_kv": 4, "num_decoder_layers": 2}
+    calls = [{"traced": True, "rows": 2, "channels": 1, "beam": 1, "steps": 3},
+             {"traced": True, "rows": 2, "channels": 1, "beam": 2, "steps": 2},
+             {"traced": False, "rows": 2, "channels": 1, "beam": 1, "steps": 9}]
+    least = sum(2 * flops.least_time(*flops.paged_decode_call(s, 3, 4, p + 1))
+                for s, n in ((2, 3), (4, 2)) for p in range(n))
+    trace = Summary(1.0, 0.5, {"void paged_decode_kernel<bf16>": (10, 2 * least),
+                               "void paged_decode_merge_kernel<bf16>": (0, 2 * least),
+                               "int4_cross_kernel": (5, 1.0)}, {})
+    run = types.SimpleNamespace(trace=trace, calls=calls,
+                                cell=types.SimpleNamespace(config={"model": cfg}))
+    assert read(run) == pytest.approx(25.0)
+    run.trace = Summary(1.0, 0.5, {"int4_cross_kernel": (5, 1.0)}, {})
+    assert read(run) is None  # no paged kernel traced: nothing to read

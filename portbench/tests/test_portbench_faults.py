@@ -33,14 +33,18 @@ def drive(name: str, seed: int = 21) -> core.Run:
 TINY = 4.0
 
 
-@pytest.mark.parametrize("name", ["mc13.transcribe", "mc13.train", "moe.train"])
+TRANSCRIBE = ["mc13.transcribe", "t5_small.transcribe"]
+
+
+@pytest.mark.parametrize("name", TRANSCRIBE + ["mc13.train", "moe.train"])
 def test_sound_run_reads_low(name):
     run = drive(name)
     for check in run.checks.values():
         assert check["value"] <= TINY * check["limit"], run.checks
 
 
-def test_transcribe_token_altered(monkeypatch):
+@pytest.mark.parametrize("name", TRANSCRIBE)
+def test_transcribe_token_altered(monkeypatch, name):
     from yourmt3_tpu_torch import api
     greedy = api.greedy_decode
 
@@ -50,12 +54,13 @@ def test_transcribe_token_altered(monkeypatch):
         ids[:, :, mid] = (ids[:, :, mid] + 17) % model.cfg.vocab_size
         return ids
     monkeypatch.setattr(api, "greedy_decode", altered)
-    run = drive("mc13.transcribe")
+    run = drive(name)
     assert not run.correct and run.checks["token_gap"]["value"] > run.checks[
         "token_gap"]["limit"]
 
 
-def test_transcribe_half_batch_left_out(monkeypatch):
+@pytest.mark.parametrize("name", TRANSCRIBE)
+def test_transcribe_half_batch_left_out(monkeypatch, name):
     from yourmt3_tpu_torch import api
     greedy = api.greedy_decode
 
@@ -64,7 +69,7 @@ def test_transcribe_half_batch_left_out(monkeypatch):
         ids[ids.shape[0] // 2:] = 2  # UNK where the rows were skipped
         return ids
     monkeypatch.setattr(api, "greedy_decode", half)
-    assert not drive("mc13.transcribe").correct
+    assert not drive(name).correct
 
 
 @pytest.mark.parametrize("name", ["mc13.train", "moe.train"])

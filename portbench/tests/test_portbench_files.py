@@ -88,7 +88,15 @@ def test_config_file_is_the_ports_preset(conf):
     assert data["detok"]["segment_seconds"] == tm.audio_cfg.segment_seconds
     assert data["detok"]["num_velocity_bins"] == tm.task.num_velocity_bins
     assert tuple(data["detok"]["extra_tokens"]) == tuple(tm.task.subtask_tokens)
-    assert not tm.subtask_prefix_ids()  # no forced prefix: every token is served
+    # the forced prefix, encoded by the reference codec, is the port's; a
+    # serving cell of a prefixed configuration checks that its rows carry it
+    from reference import serve_check
+    assert serve_check.prefix_ids(data) == tm.subtask_prefix_ids()
+    for w in BENCH["workloads"]:
+        cell = core.find_cell(w["name"])
+        if w["config"] == conf["name"] and cell.traffic["kind"] == "transcribe":
+            assert ("prefix_mismatch" in cell.limits) == bool(data["prefix"]), w["name"]
+            assert cell.limits.get("prefix_mismatch", 0) == 0
 
 
 def test_every_config_is_used():

@@ -3,21 +3,26 @@ same names and shapes, the same logits in float32, the same masks and
 loss in a training step, the same notes from the same ids. The test
 imports both; the reference imports nothing of the port."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from harness import bundle as hb
-from harness import inputs
+from harness import core, inputs
 from reference import model as ref
 from reference import serve_check, train_check
 from pb_tiny import tiny_cell
 
 torch.set_num_threads(2)
 FP32 = {"compute_dtype": "float32"}
+# one cell of each configuration
+BY_CONFIG = sorted({w["config"]: w["name"] for w in core.read_json(
+    os.path.join(core.REPO, "BENCHMARK.json"))["workloads"]}.values())
 
 
-@pytest.mark.parametrize("workload", ["mc13.train", "moe.train"])
+@pytest.mark.parametrize("workload", BY_CONFIG)
 def test_names_shapes_and_logits(workload):
     cell = tiny_cell(workload)
     b = hb.build(cell.config, "cpu", 11, overrides=FP32)
@@ -28,7 +33,7 @@ def test_names_shapes_and_logits(workload):
     g = inputs.rng(3, 0)
     audio = torch.from_numpy(g.standard_normal((2, b.audio_cfg.input_frames),
                                                dtype=np.float32) * 0.1)
-    ids = torch.from_numpy(g.integers(0, cfg["vocab_size"], (2, 13, 16)))
+    ids = torch.from_numpy(g.integers(0, cfg["vocab_size"], (2, cfg["num_channels"], 16)))
     with torch.no_grad():
         feats = b.frontend(audio)
         want = b.model(feats, ref.shift_right(ids))
@@ -43,7 +48,6 @@ def test_names_shapes_and_logits(workload):
 def test_train_step_masks_and_loss_match_in_float32():
     """Dropout and SpecAugment on: the reference's masks are the trainer's,
     so its losses, gradient and change follow a float32 program closely."""
-    from harness import core
     cell = tiny_cell("mc13.train")
     cell.config["model"].update(FP32)
     run = core.driver(cell).run(cell, 5, 0.0, False, torch.device("cpu"), 0.0)

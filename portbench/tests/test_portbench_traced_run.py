@@ -26,7 +26,8 @@ class FakeTrace:
 
     def summary(self, spans):
         return Summary(window_s=2.0, busy_s=0.5,
-                       by_name={"int4_cross_kernel": (8, 1e-3)}, gaps_by_span={})
+                       by_name={"int4_cross_kernel": (8, 1e-3),
+                                "paged_decode_kernel": (8, 1e-3)}, gaps_by_span={})
 
 
 def traced_run(name: str, monkeypatch) -> core.Run:
@@ -50,6 +51,15 @@ def test_transcribe_host_metrics_leave_the_traced_song_out(monkeypatch):
                                  / sum(c["steps"] for c in window))
     assert core.reader("int4_xattn_roofline")(run) > 0
     assert core.reader("device_idle.transcribe")(run) == pytest.approx(75.0)
+
+
+def test_prefixed_transcribe_reads_every_metric_of_its_cell(monkeypatch):
+    run = traced_run("t5_small.transcribe", monkeypatch)
+    assert run.correct and run.counts["songs"] == 2
+    for m in run.cell.per_layer:
+        if m["source"] != "program_span":  # the program records spans under a profiler
+            assert core.reader(m["name"])(run) > 0, m["name"]
+    assert "int4_xattn_roofline" not in {m["name"] for m in run.cell.per_layer}
 
 
 def test_train_window_closes_before_the_traced_steps(monkeypatch):
