@@ -14,8 +14,11 @@ Phases:
      shapes of its path, in every mode; timed with CUDA events (over
      CUDA-graph replays for the decode kernels) beside its plain version,
      the one PyTorch call that computes the same function (library_ms)
-     and its bound. The paged kernel is timed at pos 127, 511 and 1023
-     with its split count, at S = 8 and S = 48; the fused log-mel kernel is held at B in
+     and its bound. The paged kernel is checked with the position on the
+     host and in a tensor on the card (the two outputs equal bit for bit),
+     and timed with the position on the card at pos 127, 511 and 1023 on
+     its grid fixed by the cache length, at S = 8 and S = 48; the fused
+     log-mel kernel is held at B in
      {1, 8, 16}; the
      launch probe's own path is its launch-overhead measurement (eager
      through its operator in turns with torch's x + 1, then each inside
@@ -302,19 +305,25 @@ def check_kernel(dev):
             for pos in positions:
                 for qt, qdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
                     qq = q.to(qdt)
-                    got = da.paged_decode_attention(qq, pages["k"], pages["v"],
-                                                    pos, **kw)
                     plain_kw = {k: v for k, v in kw.items() if k != "dist_buckets"}
                     want = da.paged_decode_attention_plain(
                         qq, pages["k"], pages["v"], pos, **plain_kw)
-                    assert got.dtype == qdt and got.shape == (S, H, DK)
-                    assert bool(torch.isfinite(got).all())
-                    err = (got.float() - want.float()).abs().max().item()
-                    errs[qt] = max(errs[qt], err)
+                    # the host position, then the position in a tensor on the
+                    # card, read by the kernel, as a graphed decode step gives it
+                    host = da.paged_decode_attention(qq, pages["k"], pages["v"],
+                                                     pos, **kw)
+                    on_card = da.paged_decode_attention(
+                        qq, pages["k"], pages["v"], torch.tensor(pos, device=dev), **kw)
+                    for got in (host, on_card):
+                        assert got.dtype == qdt and got.shape == (S, H, DK)
+                        assert bool(torch.isfinite(got).all())
+                        err = (got.float() - want.float()).abs().max().item()
+                        errs[qt] = max(errs[qt], err)
+                    assert torch.equal(on_card, host), (S, name, pos, qt)
             torch.cuda.synchronize()
-            log(f"kernel check S={S} {name:10s} pos={list(positions)}: max|err| "
-                f"fp32 q {errs['fp32']:.3e} (tol {TOL_FP32}), bf16 q "
-                f"{errs['bf16']:.3e} (tol {TOL_BF16})")
+            log(f"kernel check S={S} {name:10s} pos={list(positions)} on the host and "
+                f"on the card (equal): max|err| fp32 q {errs['fp32']:.3e} (tol "
+                f"{TOL_FP32}), bf16 q {errs['bf16']:.3e} (tol {TOL_BF16})")
             assert errs["fp32"] < TOL_FP32, (S, name, errs)
             assert errs["bf16"] < TOL_BF16, (S, name, errs)
             for k in worst:
@@ -340,8 +349,9 @@ def bound(S, pos):
 def time_kernel(dev, batches=(8, 48)):
     """Times at the main path's shape: int8 pages, table bias, a decoder's
     8 layer caches cycled (53 MB at S = 8, about the size of L2), at S = 8
-    (t5_small's batch) and S = 48 (phase 7e's), the kernel with the split
-    count it picks. → {(S, pos): row}."""
+    (t5_small's batch) and S = 48 (phase 7e's), the kernel on its grid
+    fixed by the cache length with the position in a tensor on the card,
+    as a graphed decode step gives it. → {(S, pos): row}."""
     import torch
     import torch.nn.functional as F
     from yourmt3_tpu_torch.models.layers import relative_position_bucket
@@ -364,6 +374,7 @@ def time_kernel(dev, batches=(8, 48)):
         dense_kv = [(dense(c, "k"), dense(c, "v")) for c in caches]
         for pos in (127, 511, 1023):
             kw = dict(rel_table=table, dist_buckets=dist)
+            on_card = torch.tensor(pos, device=dev)
             j = torch.arange(L, device=dev, dtype=torch.int32)
             bias = table[relative_position_bucket(j - pos, False, BUCKETS, MAXD).long()].T
             mask = torch.where(j <= pos, bias, torch.full_like(bias, float("-inf")))
@@ -372,8 +383,8 @@ def time_kernel(dev, batches=(8, 48)):
 
             def kernel():
                 for c in caches:
-                    da.paged_decode_attention(q, c["k"], c["v"], pos, k_scale=c["ks"],
-                                              v_scale=c["vs"], **kw)
+                    da.paged_decode_attention(q, c["k"], c["v"], on_card,
+                                              k_scale=c["ks"], v_scale=c["vs"], **kw)
 
             def plain():
                 for c in caches:
@@ -387,12 +398,12 @@ def time_kernel(dev, batches=(8, 48)):
                                                    scale=1.0)
 
             b_ms, b_by = bound(S, pos)
-            splits, split_rows = da.decode_splits(pos)
+            splits, split_rows = da.decode_splits(L)
             r = rows[S, pos] = dict(
                 ms=graph_ms(kernel, layers), plain_ms=graph_ms(plain, layers),
                 library_ms=graph_ms(library, layers), bound_ms=b_ms, bound_by=b_by)
-            log(f"time S={S} int8+table pos={pos} ({splits} ranges of {split_rows} "
-                f"rows, {S * H * splits} CTAs): kernel {r['ms'] * 1e3:.2f} us, plain "
+            log(f"time S={S} int8+table pos={pos} on the card ({splits} ranges of "
+                f"{split_rows} rows, {S * H * splits} CTAs): kernel {r['ms'] * 1e3:.2f} us, plain "
                 f"{r['plain_ms'] * 1e3:.2f} us, library (SDPA, dense bf16) "
                 f"{r['library_ms'] * 1e3:.2f} us, bound ({b_by}) {b_ms * 1e3:.2f} us")
         del caches, dense_kv
@@ -1651,7 +1662,7 @@ def batch_invariance(dev, smi):
                                             dist_buckets=dist, k_scale=ks, v_scale=vs)
             diff = (got.float() - want[idx].float()).abs().max().item()
             log(f"[{smi}] batch invariance, paged kernel (t5_small width, int8 "
-                f"pages, pos {pos}, {da.decode_splits(pos)[0]} ranges): {kept} of "
+                f"pages, pos {pos}, {da.decode_splits(L)[0]} ranges): {kept} of "
                 f"{full} streams vs the full batch: max|diff| {diff:.3e}")
             assert torch.equal(got, want[idx]), (pos, kept, diff)
     full = 104

@@ -85,9 +85,9 @@ def _paged_case(S, dk, kind, gen, dev, nb=NB):
     return pages, kw
 
 
-# ranges of 128 rows at every S (S·H from 48 to 624); pos 0 and 63: one
-# range, written directly; pos 700 leaves the last range partial; dk = 128
-# with bf16 pages
+# ranges of 128 rows over the whole cache at every S (S·H from 48 to 624)
+# and every position; pos 0 and 63 leave seven ranges empty, pos 700 the
+# sixth range partial; dk = 128 with bf16 pages
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16], ids=["q32", "q16"])
 @pytest.mark.parametrize("S,dk,kind", [(8, 64, "int8"), (16, 64, "int8"), (32, 64, "int8"),
                                        (104, 64, "bf16"), (8, 128, "bf16"),
@@ -96,10 +96,9 @@ def test_paged_split_kv_matches_plain(dev, S, dk, kind, qdt):
     gen = torch.Generator().manual_seed(S + dk)
     pages, kw = _paged_case(S, dk, kind, gen, dev)
     q = torch.randn(S, H, dk, generator=gen).to(dev, qdt)
+    splits, rows = da.decode_splits(L)
+    assert (splits, rows) == (L // 128, 128)
     for pos in (0, 63, 64, 700, L - 1):
-        splits, rows = da.decode_splits(pos)
-        assert splits == -(-(pos + 1) // rows)
-        assert rows == min(pos + 1, 128)
         before = da.paged_decode_attention.launches
         got = da.paged_decode_attention(q, pages["k"], pages["v"], pos,
                                         rel_max_distance=MAXD, **kw)
@@ -135,22 +134,58 @@ def test_paged_output_does_not_depend_on_the_batch(dev, pos):
 
 
 def test_decode_splits_do_not_depend_on_the_stream_count(dev):
-    """The operator's split takes the decode position alone (no stream
-    or head count): ranges of 128 live rows."""
-    for pos in (0, 127, 128, 511, 1023, 4095):
-        assert da.decode_splits(pos) == (-(-(pos + 1) // 128), min(pos + 1, 128)), pos
+    """The operator's split takes the cache length alone (no stream or
+    head count, no position): ranges of 128 rows, one below 128."""
+    for length in (16, 64, 128, 256, 1024, 4096):
+        assert da.decode_splits(length) == (-(-length // 128), min(length, 128)), length
+
+
+POSITIONS = (0, 127, 128, 511, 1023)
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("streams", [8, 16])
+def test_device_position_matches_host_position(dev, streams, kind):
+    """The position as a 0-dim tensor on the card, read by the kernel,
+    against the host position: bit for bit. And both against the grid a
+    host position used to pick, the ranges up to the last live one (the
+    cache cut to its live pages): the empty ranges past pos weigh exactly
+    nothing."""
+    gen = torch.Generator().manual_seed(streams + len(kind))
+    pages, kw = _paged_case(streams, DK, kind, gen, dev)
+    q = torch.randn(streams, H, DK, generator=gen).to(dev, torch.bfloat16)
+    for pos in POSITIONS:
+        host = da.paged_decode_attention(q, pages["k"], pages["v"], pos,
+                                         rel_max_distance=MAXD, **kw)
+        on_card = torch.tensor(pos, device=dev)
+        got = da.paged_decode_attention(q, pages["k"], pages["v"], on_card,
+                                        rel_max_distance=MAXD, **kw)
+        live = pos // BLOCK + 1  # pages holding rows 0 .. pos
+        cut = {n: v[:, :live].contiguous() for n, v in kw.items() if n.endswith("scale")}
+        old = da.paged_decode_attention(
+            q, pages["k"][:live], pages["v"][:live], pos, rel_max_distance=MAXD,
+            rel_table=kw["rel_table"], **cut)
+        want = da.paged_decode_attention_plain(q, pages["k"], pages["v"], pos,
+                                               rel_max_distance=MAXD, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, host), pos
+        assert torch.equal(got, old), pos
+        err = (got.float() - want.float()).abs().max().item()
+        assert err < TOL[torch.bfloat16], (pos, err)
 
 
 def test_paged_op_replays_in_a_cuda_graph(dev):
-    """Captured once (output, split workspace and merge inside the graph),
-    replayed three times: the eager result each time."""
+    """Captured once with the position in a tensor on the card (output,
+    split workspace and merge inside the graph), replayed at five
+    positions by rewriting that tensor: the eager result at each."""
     gen = torch.Generator().manual_seed(7)
     pages, kw = _paged_case(S, DK, "int8", gen, dev)
     kw["dist_buckets"] = da.distance_buckets(BUCKETS, MAXD, dev)
     q = torch.randn(S, H, DK, generator=gen).to(dev, torch.bfloat16)
-    pos = L - 1
-    assert da.decode_splits(pos)[0] > 1
-    eager = da.paged_decode_attention(q, pages["k"], pages["v"], pos, **kw)
+    assert da.decode_splits(L)[0] > 1
+    eager = {p: da.paged_decode_attention(q, pages["k"], pages["v"], p, **kw)
+             for p in POSITIONS}
+    pos = torch.tensor(0, device=dev)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -159,11 +194,12 @@ def test_paged_op_replays_in_a_cuda_graph(dev):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = da.paged_decode_attention(q, pages["k"], pages["v"], pos, **kw)
-    for _ in range(3):
+    for p in POSITIONS + POSITIONS[::-1]:
+        pos.fill_(p)
         out.zero_()
         graph.replay()
         torch.cuda.synchronize()
-        assert torch.equal(out, eager)
+        assert torch.equal(out, eager[p]), p
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -178,6 +214,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         da.paged_decode_attention(q.double(), pages["k"], pages["v"], 0)
     with pytest.raises(ValueError, match="outside"):
         da.paged_decode_attention(q, pages["k"], pages["v"], L)
+    with pytest.raises(ValueError, match="0-dim int64"):
+        da.paged_decode_attention(q, pages["k"], pages["v"],
+                                  torch.tensor(0.0, device=dev))
     with pytest.raises(ValueError, match="q on"):
         da.paged_decode_attention(q, pages["k"].cpu(), pages["v"], 0)
     with pytest.raises(ValueError, match="mutually exclusive"):

@@ -117,8 +117,13 @@ def test_cross_attention_and_dense_reference_match_jax():
         assert np.abs(got.numpy() - np.asarray(want)).max() < 1e-5
 
 
+@pytest.mark.parametrize("position", ["int", "tensor"])
 @pytest.mark.parametrize("block", [64, 128])
-def test_cache_helpers_match_jax_exactly(block):
+def test_cache_helpers_match_jax_exactly(block, position):
+    """The paged cache and scale writes at the edges of the pages, at the
+    slot of a host int or of a 0-dim tensor (a graphed step's device
+    position: an index put, no host read): the same bytes as JAX's
+    writes."""
     rng = np.random.default_rng(block)
     L = NB * block
     cache = pda.empty_paged_cache(S, H, DK, L, block, torch.float32)
@@ -128,9 +133,10 @@ def test_cache_helpers_match_jax_exactly(block):
     for pos in (0, block - 1, block, L - 1):
         step = rng.standard_normal((S, H, 1, DK)).astype(np.float32)
         sc = rng.standard_normal((S, H, 1)).astype(np.float32)
-        out = pda.paged_cache_update(cache, torch.from_numpy(step), pos)
+        at = pda.paged_slot(pos if position == "int" else torch.tensor(pos), block)
+        out = pda.paged_cache_update(cache, torch.from_numpy(step), at)
         assert out is cache  # in place
-        pda.paged_scale_update(scales, torch.from_numpy(sc), pos)
+        pda.paged_scale_update(scales, torch.from_numpy(sc), at)
         jcache = jda.paged_cache_update(jcache, jnp.asarray(step), jnp.asarray(pos))
         jscales = jda.paged_scale_update(jscales, jnp.asarray(sc), jnp.asarray(pos))
         assert np.array_equal(cache.numpy(), np.asarray(jcache))

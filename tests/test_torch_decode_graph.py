@@ -3,11 +3,12 @@ that replay it as a CUDA graph (models/decoding.py).
 
 On the CPU: `YMT3.decode_step` gives bit-identical logits and self caches
 with the position as a host int and as a 0-dim tensor on every dense
-self-cache path, for the single- and the multi-channel decoder; the CPU
-decode loops never capture. On the card (marker `cuda`, skipped without
-one): the flagship's graphed greedy and beam decodes against the eager
-route of the same loops. The file imports nothing of JAX, so on a machine
-without it run the card's tests with
+self-cache path and on the paged int8 and bf16 caches, for the single-
+and the multi-channel decoder; the CPU decode loops never capture. On the
+card (marker `cuda`, skipped without one): the flagship's and full-width
+t5_small's (paged int8 caches) graphed greedy and beam decodes against the
+eager route of the same loops. The file imports nothing of JAX, so on a
+machine without it run the card's tests with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_decode_graph.py
 """
@@ -19,6 +20,7 @@ import torch
 from yourmt3_tpu_torch import api
 from yourmt3_tpu_torch.config.model import PERCEIVER_TF_MC13, T5_TINY
 from yourmt3_tpu_torch.models import decoding
+from yourmt3_tpu_torch.ops import decode_attention as da
 from yourmt3_tpu_torch.ops import int4_cross_attention as ia
 from yourmt3_tpu_torch.utils import profiling
 
@@ -31,8 +33,10 @@ DECODERS = {  # name → (model config, task)
     "multi_channel_gqa": (PERCEIVER_TF_MC13.replace(decoder_kv_heads=2, **TINY_MC),
                           "mc13_full_plus_256"),
 }
-CASES = [(d, q) for d in ("t5", "multi_channel") for q in KV_QUANTS] + [
-    ("multi_channel_gqa", "none"), ("multi_channel_gqa", "int8")]
+CASES = [(d, q, False) for d in ("t5", "multi_channel") for q in KV_QUANTS] + [
+    ("multi_channel_gqa", "none", False), ("multi_channel_gqa", "int8", False),
+    # paged caches (use_pallas_decode): int8 pages with fp32 scales, bf16 pages
+    ("t5", "int8", True), ("t5", "none", True), ("multi_channel", "int8", True)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -57,20 +61,22 @@ def _memory(model, batch, frames, seed, dev="cpu"):
     return mem.to(dev, model.dtype)
 
 
-@pytest.mark.parametrize("decoder,kv_quant", CASES,
-                         ids=[f"{d}-{q}" for d, q in CASES])
-def test_decode_step_with_a_device_position_is_bit_identical(decoder, kv_quant):
+@pytest.mark.parametrize("decoder,kv_quant,paged", CASES,
+                         ids=[f"{d}-{q}" + ("-paged" if p else "") for d, q, p in CASES])
+def test_decode_step_with_a_device_position_is_bit_identical(decoder, kv_quant, paged):
     """The same steps with `pos` as a host int and as a 0-dim int64 tensor,
     on two copies of the caches, at a read horizon of half the caches
     (phases) and then the whole: equal logits and caches, bit for bit."""
     cfg, task = DECODERS[decoder]
     model = api.init_model(model_cfg=cfg, task=task, device="cpu", seed=3,
-                           kv_quant=kv_quant, weight_quant="int8").model
+                           kv_quant=kv_quant, weight_quant="int8",
+                           use_pallas_decode=paged).model
     L, streams = 16, (2 * cfg.num_channels if model.multi else 2)
     with torch.no_grad():
         cross = model.init_cross_kv(_memory(model, 2, 12, 4))
         kvs = {"int": model.empty_self_kvs(streams, L, "cpu"),
                "tensor": model.empty_self_kvs(streams, L, "cpu")}
+        assert next(_tensors(kvs["int"])).ndim == (5 if paged else 4)
         gen = torch.Generator().manual_seed(5)
         for pos in range(12):
             tok = torch.randint(2, model.cfg.vocab_size, (streams, 1), generator=gen)
@@ -143,20 +149,21 @@ def flagship():
     return bundle.model, memory
 
 
-def _decode_counted(fn, model, memory, **kw):
-    """→ (ids on the host, steps, int4 launches, captures, replays, peak
-    bytes above the call's start)."""
+def _decode_counted(fn, model, memory, length=L_FLAGSHIP,
+                    kernel=ia.int4_cross_attention, **kw):
+    """→ (ids on the host, steps, launches of `kernel`, captures, replays,
+    peak bytes above the call's start)."""
     steps = decoding.beam_decode if "beam_size" in kw else decoding.greedy_decode
-    s0, l0, (c0, r0) = steps.steps, ia.int4_cross_attention.launches, _graph_counts()
+    s0, l0, (c0, r0) = steps.steps, kernel.launches, _graph_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     with torch.no_grad():
-        ids = fn(model, memory, L_FLAGSHIP, **kw)
+        ids = fn(model, memory, length, **kw)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     c1, r1 = _graph_counts()
-    return (ids.cpu(), steps.steps - s0, ia.int4_cross_attention.launches - l0,
+    return (ids.cpu(), steps.steps - s0, kernel.launches - l0,
             c1 - c0, r1 - r0, peak)
 
 
@@ -214,6 +221,61 @@ def test_graphed_beam_decode_matches_eager(flagship, monkeypatch):
     _eager(monkeypatch)
     want, e_steps, e_launches, e_captures, _, e_peak = _decode_counted(
         decoding.beam_decode, model, memory, beam_size=2, prefix_ids=[3])
+    assert (e_steps, e_launches, e_captures) == (steps, layers * steps, 0)
+    assert torch.equal(ids, want)
+    assert peak <= e_peak, (peak, e_peak)
+
+
+# ---------------------------------------------------------------------------
+# on the card: full-width t5_small on paged int8 caches, graphed against eager
+# ---------------------------------------------------------------------------
+
+L_T5 = 1024  # 8 segments, one stream each
+
+
+@pytest.fixture(scope="module")
+def t5_small():
+    """Full-width t5_small with seeded random weights (the EOS row of the
+    LM head zero, so that no stream ends early) on the fast decode path for
+    one channel of 1024 tokens: int8 self caches in pages read by the paged
+    kernel, int8 cross K/V. The memory of 8 noise segments and the task's
+    forced prefix (transcribe_all)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bundle = api.init_model("t5_small", "mt3_full_plus", device="cuda", seed=0,
+                            **api.fast_decode_overrides(1, L_T5))
+    assert bundle.model.cfg.use_pallas_decode
+    audio = np.random.default_rng(1).normal(
+        0.0, 0.1, (BATCH, bundle.audio_cfg.input_frames)).astype(np.float32)
+    with torch.no_grad():
+        bundle.model.lm_head.weight[decoding.EOS_ID].zero_()
+        memory = api._encode_batch(bundle, audio)
+    return bundle.model, memory, bundle.task_manager.subtask_prefix_ids()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam", [1, 2], ids=["greedy", "beam2"])
+def test_graphed_paged_decode_matches_eager(t5_small, monkeypatch, beam):
+    """8 streams (16 beams), L = 1024, the int8 paged kernel: the graphed
+    loop's token ids equal the eager loop's; one capture, a replay for
+    every step past the forced prefix, 8 paged launches a step on both
+    routes (a replay adds the launches its capture recorded), and a peak of
+    allocated memory no higher than the eager loop's."""
+    model, memory, prefix = t5_small
+    layers = model.cfg.num_decoder_layers
+    if beam == 1:
+        fn, kw = decoding.greedy_decode, dict(prefix_ids=prefix, ban_eos=True)
+    else:
+        fn, kw = decoding.beam_decode, dict(prefix_ids=prefix, beam_size=beam)
+    kw.update(length=L_T5, kernel=da.paged_decode_attention)
+    ids, steps, launches, captures, replays, peak = _decode_counted(
+        fn, model, memory, **kw)
+    assert steps == L_T5
+    assert (captures, replays) == (1, steps - len(prefix))
+    assert launches == layers * steps
+    _eager(monkeypatch)
+    want, e_steps, e_launches, e_captures, _, e_peak = _decode_counted(
+        fn, model, memory, **kw)
     assert (e_steps, e_launches, e_captures) == (steps, layers * steps, 0)
     assert torch.equal(ids, want)
     assert peak <= e_peak, (peak, e_peak)

@@ -20,16 +20,24 @@ from yourmt3_tpu_torch.ops import decode_attention as pda
 S, H, DK, NB, BLOCK = 2, 3, 32, 4, 64
 L = NB * BLOCK
 BUCKETS, MAXD = 32, 128
-POSITIONS = (0, BLOCK - 1, BLOCK, L - 1)
+# NB_LONG pages make the t5_small decode cache's 1024 rows, cut as the CUDA
+# kernel cuts them: eight ranges of 128 at every position
+NB_LONG = 16
 
 
-def _inputs(quantized, seed):
+def _positions(length):
+    """Page edges, range edges and the last row of a cache of `length`."""
+    return tuple(p for p in (0, BLOCK - 1, BLOCK, 127, 128, 511) if p < length) + (
+        length - 1,)
+
+
+def _inputs(quantized, seed, nb=NB):
     rng = np.random.default_rng(seed)
     d = dict(q=rng.standard_normal((S, H, DK)).astype(np.float32),
              table=rng.standard_normal((BUCKETS, H)).astype(np.float32),
-             row=rng.standard_normal((H, L)).astype(np.float32))
+             row=rng.standard_normal((H, nb * BLOCK)).astype(np.float32))
     for n in "kv":
-        x = rng.standard_normal((NB, S, H, BLOCK, DK)).astype(np.float32)
+        x = rng.standard_normal((nb, S, H, BLOCK, DK)).astype(np.float32)
         if quantized:  # int8 rows with per-row scales
             sc = np.abs(x).max(-1) / np.float32(127.0)
             d[n] = np.round(x / sc[..., None]).astype(np.int8)
@@ -52,9 +60,9 @@ def _kwargs(d, bias, quantized):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_outputs(bias, quantized):
+def _jax_outputs(bias, quantized, nb):
     """The JAX kernel's output at each position (one jit per mode)."""
-    d = _inputs(quantized, seed=len(bias) + 10 * quantized)
+    d = _inputs(quantized, seed=len(bias) + 10 * quantized, nb=nb)
     jkw, _ = _kwargs(d, bias, quantized)
     kernel = jax.jit(functools.partial(
         jda.paged_decode_attention, block=BLOCK, streams_per_tile=S,
@@ -62,26 +70,31 @@ def _jax_outputs(bias, quantized):
     return {pos: np.asarray(kernel(jnp.asarray(d["q"]), jnp.asarray(d["k"]),
                                    jnp.asarray(d["v"]), jnp.asarray(pos, jnp.int32),
                                    **jkw))
-            for pos in POSITIONS}
+            for pos in _positions(nb * BLOCK)}
 
 
-@pytest.mark.parametrize("split_rows", [16, 64, 128, L])
+@pytest.mark.parametrize("nb,split_rows", [(NB, 16), (NB, 64), (NB, 128), (NB, L),
+                                           (NB_LONG, 128)],
+                         ids=["16", "64", "128", str(L), "1024-128"])
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
 @pytest.mark.parametrize("bias", ["table", "row", "none"])
-def test_split_merge_matches_jax_kernel(bias, quantized, split_rows):
+def test_split_merge_matches_jax_kernel(bias, quantized, nb, split_rows):
     """Every position, including ranges that lie wholly past pos (pos 0
-    with 16-row ranges leaves 15 empty ones), within 1e-5 in fp32."""
-    d = _inputs(quantized, seed=len(bias) + 10 * quantized)
+    with 16-row ranges leaves 15 empty ones; the 1024-row cache in ranges
+    of 128, the kernel's grid, leaves up to seven), with the position as a
+    host int and as a 0-dim tensor, within 1e-5 in fp32."""
+    d = _inputs(quantized, seed=len(bias) + 10 * quantized, nb=nb)
     _, pkw = _kwargs(d, bias, quantized)
     q, k, v = (torch.from_numpy(d[n]) for n in "qkv")
-    for pos, want in _jax_outputs(bias, quantized).items():
-        got = pda.paged_decode_attention_split_plain(
-            q, k, v, pos, split_rows, rel_max_distance=MAXD, **pkw)
-        assert got.dtype == torch.float32 and got.shape == (S, H, DK)
-        err = np.abs(got.numpy() - want).max()
-        assert err < 1e-5, (pos, err)
+    for pos, want in _jax_outputs(bias, quantized, nb).items():
         plain = pda.paged_decode_attention_plain(q, k, v, pos, rel_max_distance=MAXD, **pkw)
-        assert (got - plain).abs().max().item() < 1e-5
+        for at in (pos, torch.tensor(pos)):
+            got = pda.paged_decode_attention_split_plain(
+                q, k, v, at, split_rows, rel_max_distance=MAXD, **pkw)
+            assert got.dtype == torch.float32 and got.shape == (S, H, DK)
+            err = np.abs(got.numpy() - want).max()
+            assert err < 1e-5, (pos, type(at), err)
+            assert (got - plain).abs().max().item() < 1e-5
 
 
 def test_empty_range_weighs_nothing():

@@ -8,18 +8,18 @@ in a beam search, scores). The host reads the "all done" flag once every
 tokens unchanged. Channels are folded into the batch by the caller's
 model, so one loop serves single- and multi-channel decoders.
 
-With the memory on a CUDA device and dense self caches, a decode call
-runs the steps that take host branches eagerly (the forced prefix, the
-beam's first step), then captures one step as a CUDA graph on the loop's
-state, with the position in a 0-dim device tensor that the graph advances
-itself, and replays it at every later position: the host launches one
-graph a step instead of each of the step's kernels. The graph and its
-memory pool live for the one call (`greedy_decode` captures once per
-phase). Paged self caches (their kernels take the position as a host
-scalar), the CPU and a decode inside another capture run every step
-eagerly, through the same step function. `greedy_decode_early_exit` runs
-the eager step in chunks and drops finished streams from the batch
-between chunks.
+With the memory on a CUDA device, a decode call runs the steps that take
+host branches eagerly (the forced prefix, the beam's first step), then
+captures one step as a CUDA graph on the loop's state, with the position
+in a 0-dim device tensor that the graph advances itself, and replays it
+at every later position: the host launches one graph a step instead of
+each of the step's kernels. Dense and paged self caches alike: the paged
+kernel and the paged cache writes read the position on the device. The
+graph and its memory pool live for the one call (`greedy_decode`
+captures once per phase). The CPU and a decode inside another capture
+run every step eagerly, through the same step function.
+`greedy_decode_early_exit` runs the eager step in chunks and drops
+finished streams from the batch between chunks.
 """
 
 from __future__ import annotations
@@ -75,15 +75,10 @@ def _decode(model: YMT3, tok: torch.Tensor, pos, self_kvs, cross_kvs,
         return model.decode_step(tok, pos, self_kvs, cross_kvs, kv_len=kv_len)[0]
 
 
-def _graphable(memory: torch.Tensor, self_kvs) -> bool:
+def _graphable(memory: torch.Tensor) -> bool:
     """Whether a decode loop replays its step as a CUDA graph: the memory
-    is on a CUDA device, the self caches are dense and no capture is
-    running already."""
-    cache = self_kvs[0][0]
-    if isinstance(cache, tuple):
-        cache = cache[0]
-    return (memory.is_cuda and cache.ndim == 4
-            and not torch.cuda.is_current_stream_capturing())
+    is on a CUDA device and no capture is running already."""
+    return memory.is_cuda and not torch.cuda.is_current_stream_capturing()
 
 
 class _Stepper:
@@ -94,10 +89,11 @@ class _Stepper:
     the position in a 0-dim int64 tensor on `device` that the graph
     advances. A replay adds the kernel launches its capture recorded to
     the launch counters, which the kernels' wrappers advance only when
-    Python calls them. Used as a context manager around the loop: on exit
-    it frees the graph and clears cuBLAS's workspaces, since the capture
-    stream's workspace lies in the graph's memory pool and would otherwise
-    stay allocated after the call."""
+    Python calls them. cuBLAS keeps a workspace per stream: the capture
+    clears the eager stream's before it starts, and, used as a context
+    manager around the loop, the stepper frees the graph and clears the
+    capture stream's on exit (it lies in the graph's memory pool and would
+    otherwise stay allocated after the call), so the two never coexist."""
 
     captures = 0  # graph captures and replays since the last reset
     replays = 0
@@ -134,6 +130,7 @@ class _Stepper:
 
     def _capture(self, pos: int) -> None:
         self.pos = torch.full((), pos, dtype=torch.long, device=self.device)
+        torch._C._cuda_clearCublasWorkspaces()
         before = profiling.launches()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(self.device), torch.cuda.graph(self.graph):
@@ -241,7 +238,7 @@ def greedy_decode(
         cross_kvs = model.init_cross_kv(memory)
     st = _GreedyState(model, B * C, max_length, memory.device)
     prefix = list(prefix_ids or [])
-    graphed = _graphable(memory, st.self_kvs)
+    graphed = _graphable(memory)
     span = max_length // phases
     for p in range(phases):
         limit = (p + 1) * span
@@ -401,7 +398,7 @@ def beam_decode(
         scores.copy_(top_v)
 
     pos = 0
-    with _Stepper(step, _graphable(memory, self_kvs), max(P, 1), dev) as run, \
+    with _Stepper(step, _graphable(memory), max(P, 1), dev) as run, \
             profiling.span("decode.beam"):
         while pos < max_length:
             with profiling.span("decode.done_read"):

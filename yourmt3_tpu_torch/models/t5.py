@@ -10,11 +10,12 @@ hidden states.
 
 Decoding uses explicit caches: `init_cross_kv` projects the encoder
 memory once per segment batch, `decode_step` runs one token for every
-stream and writes its K/V into the self caches in place. On the dense
-self-cache paths the position may be a 0-dim tensor on the device, so
-that one CUDA graph of the step serves every position. The paged
-self-attention paths hand the bucket table to the decode-attention kernel
-(ops/decode_attention.py), which builds the bias itself; with
+stream and writes its K/V into the self caches in place. The position may
+be a 0-dim tensor on the device, so that one CUDA graph of the step serves
+every position. The paged self-attention paths hand the bucket table to
+the decode-attention kernel (ops/decode_attention.py), which builds the
+bias itself and, like the paged cache writes, reads a device position
+where it is given one; with
 kv_quant="int8c4p" the cross-attention runs through the int4 kernel
 (ops/int4_cross_attention.py).
 """
@@ -29,7 +30,8 @@ from torch import nn
 from ..config.model import ModelConfig
 from ..ops.decode_attention import (dense_to_paged, paged_cache_update,
                                     paged_cross_attention,
-                                    paged_decode_attention, paged_scale_update)
+                                    paged_decode_attention, paged_scale_update,
+                                    paged_slot)
 from ..ops.int4_cross_attention import int4_cross_attention
 from ..ops.kv_quant import (int4_decode_attention, int8_decode_attention,
                             quantize_kv, quantize_kv4, quantize_kv4_crosspack)
@@ -176,12 +178,13 @@ class T5DecoderLayer(nn.Module):
 
     # ---- single-step decode with external caches ----------------------
     def decode_step(self, y: torch.Tensor, self_kv, pos, cross_kv,
-                    step_bias, kv_len: int = 0):
-        """y: (S, 1, D). pos: the lockstep position, a host int or, on the
-        dense self-cache paths, a 0-dim int64 tensor on the caches' device
-        (the paged kernels take it as a host scalar).
+                    step_bias, kv_len: int = 0, slot=None):
+        """y: (S, 1, D). pos: the lockstep position, a host int or a 0-dim
+        int64 tensor on the caches' device.
         step_bias: (1, H, 1, L) rel-bias row + causal mask (dense paths) or
         ("table", (buckets, H) table, distance buckets) for the kernel.
+        slot: the position's `paged_slot` on the paged paths, computed once
+        a step for every layer.
         kv_len: read horizon of the dense self-attention paths (0 = full
         L). The self caches are updated in place and returned."""
         cfg = self.cfg
@@ -202,10 +205,10 @@ class T5DecoderLayer(nn.Module):
             (kq, ksc), (vq, vsc) = ck, cv
             kq_s, ks_s = quantize_kv(k_step)
             vq_s, vs_s = quantize_kv(v_step)
-            paged_cache_update(kq, kq_s, pos)
-            paged_scale_update(ksc, ks_s, pos)
-            paged_cache_update(vq, vq_s, pos)
-            paged_scale_update(vsc, vs_s, pos)
+            paged_cache_update(kq, kq_s, slot)
+            paged_scale_update(ksc, ks_s, slot)
+            paged_cache_update(vq, vq_s, slot)
+            paged_scale_update(vsc, vs_s, slot)
             att = paged_decode_attention(
                 q, kq, vq, pos, rel_table=step_bias[1],
                 rel_max_distance=cfg.rel_attn_max_distance,
@@ -225,8 +228,8 @@ class T5DecoderLayer(nn.Module):
                          cv[0][:, :, :n], cv[1][:, :, :n], step_bias)
         elif cfg.use_pallas_decode:
             # bf16/fp32 paged
-            paged_cache_update(ck, k_step, pos)
-            paged_cache_update(cv, v_step, pos)
+            paged_cache_update(ck, k_step, slot)
+            paged_cache_update(cv, v_step, slot)
             att = paged_decode_attention(
                 q, ck, cv, pos, rel_table=step_bias[1],
                 rel_max_distance=cfg.rel_attn_max_distance,
@@ -339,20 +342,23 @@ class T5Decoder(nn.Module):
     def decode_step(self, y: torch.Tensor, pos, self_kvs: List,
                     cross_kvs: List, kv_len: int = 0):
         """y: (S, 1, D) embedded current tokens; pos: host int, or a 0-dim
-        int64 tensor on the caches' device on the dense self-cache paths.
+        int64 tensor on the caches' device.
         → ((S, 1, D) final-normed hidden, self caches)."""
+        skv = self_kvs[0][0]
+        if isinstance(skv, tuple):
+            skv = skv[0]
+        slot = None
         if self.cfg.use_pallas_decode:
             rel = self.rel_bias
             bias = ("table", rel.weight, rel.distance_buckets)
+            slot = paged_slot(pos, skv.shape[3])  # every layer's pages alike
         else:
-            skv = self_kvs[0][0]
-            if isinstance(skv, tuple):
-                skv = skv[0]
             L = skv.shape[0] * skv.shape[3] if skv.ndim == 5 else skv.shape[2]
             bias = self.step_bias(pos, kv_len or L)
         new_kvs = []
         for lyr, skv, ckv in zip(self.block, self_kvs, cross_kvs):
-            y, nkv = lyr.decode_step(y, skv, pos, ckv, bias, kv_len=kv_len)
+            y, nkv = lyr.decode_step(y, skv, pos, ckv, bias, kv_len=kv_len,
+                                     slot=slot)
             new_kvs.append(nkv)
         return self.final_layer_norm(y), new_kvs
 

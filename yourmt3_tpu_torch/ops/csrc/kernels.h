@@ -20,21 +20,23 @@ constexpr int LOGMEL_MAX_MELS = 512;    // mel columns: their bands stay in regi
 
 extern "C" {
 
-// Rows per split-KV range for `rows` live rows: a function of `rows`
-// alone, so the split is the same at every batch size
-// (paged_decode_attention.cu).
-int paged_decode_split_rows(int rows);
+// Rows per split-KV range for a cache of `length` rows: a function of the
+// cache length alone, so the split is the same at every batch size and
+// every position (paged_decode_attention.cu).
+int paged_decode_split_rows(int length);
 
 // dtype codes: 0 = fp32, 1 = bf16, 2 = int8 (pages only). Pointers that a
-// mode does not use are null. The live rows [0, pos] are cut into nsplit
-// ranges of split_rows; with nsplit > 1, `work` holds S*H*nsplit*(2 + dk)
-// floats.
+// mode does not use are null. The position is *pos_dev, read on the
+// device, where pos_dev is not null, else pos (in [0, NB*block)). The
+// cache's rows [0, NB*block) are cut into nsplit ranges of split_rows;
+// ranges past the position are empty. With nsplit > 1, `work` holds
+// S*H*nsplit*(2 + dk) floats.
 int paged_decode_attention_launch(
     const void* q, const void* k, const void* v, const float* ks,
     const float* vs, const float* rel_table, const int32_t* dist_buckets,
     int n_dist, int num_buckets, const float* bias_row, void* out,
-    float* work, int S, int H, int NB, int block, int dk, int pos,
-    int split_rows, int nsplit, int q_dtype, int kv_dtype, void* stream);
+    float* work, int S, int H, int NB, int block, int dk, const int64_t* pos_dev,
+    int pos, int split_rows, int nsplit, int q_dtype, int kv_dtype, void* stream);
 
 // q_dtype: 0 = fp32, 1 = bf16.
 int int4_cross_attention_launch(const void* q, const void* k4, const void* ks,

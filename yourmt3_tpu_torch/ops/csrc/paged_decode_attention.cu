@@ -27,20 +27,27 @@
 // 0 .. pos are read.
 //
 // Design:
-//   * split-KV: the live rows [0, pos] of a (stream, head) are cut into
-//     contiguous ranges of SPLIT_ROWS = 128 rows, one CTA each (grid
-//     S*H x nsplit), so the split depends on the cache length alone and a
-//     stream's output is bit for bit the same in a batch of any size (the
-//     batch a stream is decoded in changes under early-exit compaction and
-//     across ranks of chunk-parallel decoding). 128 rows is one step of
-//     every warp; PERF.md has the sweep over range sizes that chose it.
-//     With pos < 128 there is one range and the CTA writes the output
-//     itself. Otherwise each CTA writes a partial softmax state (its max
-//     m, normaliser l, accumulator acc[dk]) and paged_decode_merge_kernel,
-//     launched right after on the same stream, rescales the partials by
-//     exp(m_i - m) and sums them in a fixed order, then writes the output.
-//     A range that starts past pos writes the empty partial (m = -1e30,
-//     l = 0), which the merge weighs by 0;
+//   * the position: the launch's own host value, or a 0-dim int64 tensor
+//     on the device that the kernel reads (clamped below L), so that one
+//     CUDA graph of a decode step, which advances that tensor itself,
+//     replays at every position;
+//   * split-KV over a grid fixed by the cache length: the cache's rows
+//     [0, L) are cut into contiguous ranges of SPLIT_ROWS = 128 rows, one
+//     CTA each (grid S*H x nsplit, nsplit = L / 128 rounded up), at every
+//     position. So the launch does not depend on pos, and the split not on
+//     the batch: a stream's output is bit for bit the same in a batch of
+//     any size (the batch a stream is decoded in changes under early-exit
+//     compaction and across ranks of chunk-parallel decoding). 128 rows is
+//     one step of every warp; PERF.md has the sweep over range sizes that
+//     chose it. With L <= 128 there is one range and the CTA writes the
+//     output itself. Otherwise each CTA writes a partial softmax state
+//     (its max m, normaliser l, accumulator acc[dk]) and
+//     paged_decode_merge_kernel, launched right after on the same stream,
+//     rescales the partials by exp(m_i - m) and sums them in a fixed
+//     order, then writes the output. A range that starts past pos writes
+//     the empty partial (m = -1e30, l = 0, acc = 0) and returns; the merge
+//     weighs it by exactly 0, so the output equals that of a grid cut
+//     after the last live range, bit for bit;
 //   * warps own their rows: a row of dk values is C = dk*sizeof(T)/16
 //     chunks of 16 bytes, lane t of a warp owns chunk t % C of row group
 //     t / C, so a warp reads G = 32/C whole rows per step with 16-byte
@@ -144,6 +151,7 @@ struct Params {
   void* out;
   float* part_ml;   // (S*H, nsplit, 2); null when nsplit == 1
   float* part_acc;  // (S*H, nsplit, dk)
+  const int64_t* pos_dev;  // the position on the device, or null: pos
   int n_dist, num_buckets, S, H, NB, block, pos, split_rows, nsplit;
 };
 
@@ -166,9 +174,23 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const int c = lane % C;
   const int g = lane / C;
-  const int r0 = blockIdx.y * p.split_rows;
-  const int r1 = min(r0 + p.split_rows, p.pos + 1);  // may be <= r0
   const int L = p.NB * p.block;
+  int pos = p.pos;
+  if (p.pos_dev != nullptr) {  // clamped: a stray value reads no row past the cache
+    const int64_t d = *p.pos_dev;
+    pos = d >= L ? L - 1 : d < 0 ? -1 : static_cast<int>(d);
+  }
+  const int r0 = blockIdx.y * p.split_rows;
+  const int r1 = min(r0 + p.split_rows, pos + 1);  // may be <= r0
+  const size_t part = static_cast<size_t>(sh) * p.nsplit + blockIdx.y;
+  if (p.nsplit > 1 && r0 >= r1) {  // a range past pos: the empty partial
+    for (int d = threadIdx.x; d < DK; d += NT) p.part_acc[part * DK + d] = 0.f;
+    if (threadIdx.x == 0) {
+      p.part_ml[2 * part] = NEG_INF;
+      p.part_ml[2 * part + 1] = 0.f;
+    }
+    return;
+  }
   const TKV* kb = static_cast<const TKV*>(p.k);
   const TKV* vb = static_cast<const TKV*>(p.v);
 
@@ -216,7 +238,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const Params p) {
           vsc[u] = __ldg(p.vs + sc);
         }
         if (p.rel_table != nullptr) {
-          const int d = p.pos - j;  // >= 0: j < r1 <= pos + 1
+          const int d = pos - j;  // >= 0: j < r1 <= pos + 1
           bkt[u] = d < p.n_dist ? __ldg(p.dist_buckets + d) : p.num_buckets - 1;
         } else if (p.bias_row != nullptr) {
           bias[u] = __ldg(p.bias_row + static_cast<size_t>(h) * L + j);
@@ -320,7 +342,6 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(const Params p) {
     fw[w] = expf(s_m[w] - mm);
     ll += s_l[w] * fw[w];
   }
-  const size_t part = static_cast<size_t>(sh) * p.nsplit + blockIdx.y;
   for (int d = threadIdx.x; d < DK; d += NT) {
     float a = 0.f;
 #pragma unroll
@@ -422,25 +443,28 @@ cudaError_t dispatch_kv(int kv_dtype, int dk, const Params& p, cudaStream_t stre
 
 }  // namespace
 
-// Ranges of SPLIT_ROWS rows whatever the batch, so that a stream's output
-// does not depend on the streams decoded beside it.
-extern "C" int paged_decode_split_rows(int rows) {
-  return rows <= SPLIT_ROWS ? rows : SPLIT_ROWS;
+// Ranges of SPLIT_ROWS rows whatever the batch and the position, so that
+// a stream's output does not depend on the streams decoded beside it and
+// one launch serves every position.
+extern "C" int paged_decode_split_rows(int length) {
+  return length <= SPLIT_ROWS ? length : SPLIT_ROWS;
 }
 
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k, const void* v, const float* ks,
     const float* vs, const float* rel_table, const int32_t* dist_buckets,
     int n_dist, int num_buckets, const float* bias_row, void* out,
-    float* work, int S, int H, int NB, int block, int dk, int pos,
-    int split_rows, int nsplit, int q_dtype, int kv_dtype, void* stream) {
+    float* work, int S, int H, int NB, int block, int dk, const int64_t* pos_dev,
+    int pos, int split_rows, int nsplit, int q_dtype, int kv_dtype, void* stream) {
   if (block < 1 || block > PAGED_MAX_BLOCK || num_buckets > PAGED_MAX_BUCKETS || S < 1 ||
-      H < 1 || NB < 1 || pos < 0 || split_rows < 1 || nsplit < 1 ||
-      nsplit > MAX_SPLITS || (nsplit > 1 && work == nullptr))
+      H < 1 || NB < 1 || (pos_dev == nullptr && (pos < 0 || pos >= NB * block)) ||
+      split_rows < 1 || nsplit < 1 || nsplit > MAX_SPLITS ||
+      static_cast<int64_t>(split_rows) * nsplit < static_cast<int64_t>(NB) * block ||
+      (nsplit > 1 && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, ks, vs, rel_table, dist_buckets, bias_row, out,
            work, work == nullptr ? nullptr : work + static_cast<size_t>(S) * H * nsplit * 2,
-           n_dist, num_buckets, S, H, NB, block, pos, split_rows, nsplit};
+           pos_dev, n_dist, num_buckets, S, H, NB, block, pos, split_rows, nsplit};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_dtype == 0)

@@ -87,15 +87,15 @@ Tensor as_3d(const Tensor& q) {
   return q;
 }
 
-// [nsplit, split_rows] for live rows [0, pos]: the same for every batch
-std::vector<int64_t> splits_for(int64_t pos) {
-  const int64_t rows = pos + 1;
-  const int64_t split_rows = paged_decode_split_rows(static_cast<int>(rows));
-  return {(rows + split_rows - 1) / split_rows, split_rows};
+// [nsplit, split_rows] for a cache of `length` rows: the same for every
+// batch and every position
+std::vector<int64_t> splits_for(int64_t length) {
+  const int64_t split_rows = paged_decode_split_rows(static_cast<int>(length));
+  return {(length + split_rows - 1) / split_rows, split_rows};
 }
 
 Tensor paged_decode_attention(const Tensor& q, const Tensor& k_cache,
-                              const Tensor& v_cache, int64_t pos,
+                              const Tensor& v_cache, const Tensor& pos,
                               const OptTensor& bias_row, const OptTensor& rel_table,
                               const OptTensor& dist_buckets, const OptTensor& k_scale,
                               const OptTensor& v_scale) {
@@ -124,7 +124,19 @@ Tensor paged_decode_attention(const Tensor& q, const Tensor& k_cache,
   TORCH_CHECK_VALUE(is_dk(dk), "dk=", dk, " not in (16, 32, 64, 128)");
   TORCH_CHECK_VALUE(1 <= block && block <= PAGED_MAX_BLOCK, "block=", block,
                     " must be in [1, ", PAGED_MAX_BLOCK, "]");
-  TORCH_CHECK_VALUE(0 <= pos && pos < L, "pos=", pos, " outside [0, ", L, ")");
+  // pos: a host value (a CPU tensor), checked here, or a tensor on q's
+  // device that the kernel reads
+  TORCH_CHECK_VALUE(pos.dim() == 0 && pos.scalar_type() == ScalarType::Long,
+                    "pos must be a 0-dim int64 tensor, got ", pos.scalar_type(),
+                    " of shape ", pos.sizes());
+  const bool host_pos = pos.is_cpu();
+  const int64_t pos_h = host_pos ? *pos.data_ptr<int64_t>() : 0;
+  if (host_pos) {
+    TORCH_CHECK_VALUE(0 <= pos_h && pos_h < L, "pos=", pos_h, " outside [0, ", L, ")");
+  } else {
+    TORCH_CHECK_VALUE(pos.device() == q3.device(), "pos is on ", pos.device(), ", q on ",
+                      q3.device());
+  }
   for (const Tensor* t : {&k_cache, &v_cache})
     TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
                       t == &k_cache ? "k_cache" : "v_cache", " must be 16-byte aligned");
@@ -145,7 +157,7 @@ Tensor paged_decode_attention(const Tensor& q, const Tensor& k_cache,
           std::vector<int64_t>{H, L});
 
   const c10::cuda::CUDAGuard guard(q.device());
-  const std::vector<int64_t> sp = splits_for(pos);
+  const std::vector<int64_t> sp = splits_for(L);
   const int64_t nsplit = sp[0];
   Tensor out = at::empty({S, H, dk}, q.options());
   Tensor work;
@@ -158,16 +170,18 @@ Tensor paged_decode_attention(const Tensor& q, const Tensor& k_cache,
       bias_row.has_value() ? bias_row->data_ptr<float>() : nullptr, out.data_ptr(),
       nsplit > 1 ? work.data_ptr<float>() : nullptr, static_cast<int>(S),
       static_cast<int>(H), static_cast<int>(NB), static_cast<int>(block),
-      static_cast<int>(dk), static_cast<int>(pos), static_cast<int>(sp[1]),
+      static_cast<int>(dk), host_pos ? nullptr : pos.data_ptr<int64_t>(),
+      static_cast<int>(pos_h), static_cast<int>(sp[1]),
       static_cast<int>(nsplit), dtype_code(q.scalar_type()),
       dtype_code(k_cache.scalar_type()), stream_of(q));
   check_launch(err, "paged_decode_attention");
   return q.dim() == 4 ? out.unsqueeze(2) : out;
 }
 
-std::vector<int64_t> paged_decode_splits(int64_t pos) {
-  TORCH_CHECK_VALUE(pos >= 0, "paged_decode_splits takes pos >= 0, got ", pos);
-  return splits_for(pos);
+std::vector<int64_t> paged_decode_splits(int64_t length) {
+  TORCH_CHECK_VALUE(length >= 1, "paged_decode_splits takes a cache length >= 1, got ",
+                    length);
+  return splits_for(length);
 }
 
 Tensor int4_cross_attention(const Tensor& q, const Tensor& k4, const Tensor& ks,
@@ -267,10 +281,10 @@ Tensor launch_probe(const Tensor& x) {
 }  // namespace
 
 TORCH_LIBRARY(yourmt3_tpu_torch, m) {
-  m.def("paged_decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, int pos, "
+  m.def("paged_decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, Tensor pos, "
         "Tensor? bias_row=None, Tensor? rel_table=None, Tensor? dist_buckets=None, "
         "Tensor? k_scale=None, Tensor? v_scale=None) -> Tensor");
-  m.def("paged_decode_splits(int pos) -> int[]",
+  m.def("paged_decode_splits(int length) -> int[]",
         &paged_decode_splits);
   m.def("int4_cross_attention(Tensor q, Tensor k4, Tensor ks, Tensor v4, Tensor vs) "
         "-> Tensor");

@@ -13,6 +13,10 @@ axis 0 otherwise).
 runs `paged_decode_attention_plain` for CPU tensors; it never falls back
 from one to the other. `paged_decode_attention_split_plain` repeats the
 kernel's split-and-merge algebra in plain PyTorch for the tests.
+
+The decode position is a host int or a 0-dim int64 tensor on the caches'
+device, which the kernel and the cache writes read without a host read:
+one CUDA graph of a decode step then serves every position.
 """
 
 from __future__ import annotations
@@ -40,13 +44,14 @@ def _as_3d(q: torch.Tensor):
 
 
 def paged_decode_attention_plain(
-    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos,
     bias_row: Optional[torch.Tensor] = None,
     rel_table: Optional[torch.Tensor] = None, rel_max_distance: int = 128,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (fp32 throughout)."""
+    """The kernel's function in plain PyTorch (fp32 throughout); pos a
+    host int or a 0-dim tensor."""
     q3, squeeze = _as_3d(q)
     S, H, dk = q3.shape
     NB, _, _, block, _ = k_cache.shape
@@ -89,10 +94,9 @@ def paged_decode_attention_split_plain(
 ) -> torch.Tensor:
     """The kernel's split-KV algebra in plain PyTorch (fp32), for the tests.
 
-    The cache's rows [0, L) are cut into ranges of `split_rows`. The
-    kernel cuts only the live rows [0, pos]; cutting the whole cache also
-    covers ranges wholly past pos, as a position held on the device would
-    give. Each range keeps the partial softmax state of
+    The cache's rows [0, L) are cut into ranges of `split_rows`, whatever
+    pos, as the kernel cuts them (`decode_splits`), so ranges wholly past
+    pos occur at most positions. Each range keeps the partial softmax state of
     its live rows (j <= pos): max m_i, normaliser l_i = Σ exp(x - m_i) and
     unnormalised accumulator acc_i = Σ exp(x - m_i) · v_scale · V; a range
     wholly past pos keeps m_i = NEG_INF, l_i = 0, acc_i = 0. The merge
@@ -140,7 +144,8 @@ def paged_decode_attention(
     q: torch.Tensor,  # (S, H, dk) or (S, H, 1, dk)
     k_cache: torch.Tensor,  # (NB, S, H, block, dk)
     v_cache: torch.Tensor,
-    pos: int,  # lockstep decode position
+    pos,  # lockstep decode position: a host int or a 0-dim int64 tensor
+    # on the caches' device, read by the kernel
     bias_row: Optional[torch.Tensor] = None,  # (H, L) fp32
     rel_table: Optional[torch.Tensor] = None,  # (buckets, H) fp32
     rel_max_distance: int = 128,
@@ -158,7 +163,9 @@ def paged_decode_attention(
 
     CPU tensors go to the plain version; CUDA tensors launch the kernel
     through its operator, which checks the arguments (and count one
-    launch), or raise."""
+    launch), or raise. The operator takes the position as a 0-dim int64
+    tensor: a host int goes as a CPU tensor, checked on the host; a
+    device tensor is read by the kernel, which clamps it below L."""
     if q.is_cpu:
         if bias_row is not None and rel_table is not None:
             raise ValueError("bias_row and rel_table are mutually exclusive")
@@ -174,7 +181,9 @@ def paged_decode_attention(
     if rel_table is not None and dist_buckets is None:
         dist_buckets = distance_buckets(rel_table.shape[0], rel_max_distance,
                                         q.device)
-    out = _op(q, k_cache, v_cache, int(pos), bias_row, rel_table, dist_buckets,
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.tensor(int(pos))
+    out = _op(q, k_cache, v_cache, pos, bias_row, rel_table, dist_buckets,
               k_scale, v_scale)
     paged_decode_attention.launches += 1
     return out
@@ -184,11 +193,14 @@ paged_decode_attention.launches = 0  # kernel launches since the last reset
 profiling.register_kernel("paged_decode_attention", paged_decode_attention)
 
 
-def decode_splits(pos: int):
-    """(ranges, rows per range) that the kernel picks at decode position
-    `pos`: ranges of 128 rows, chosen from the cache length alone, so a
-    stream's output does not depend on the batch it is decoded in."""
-    return tuple(cuda_build.op("paged_decode_splits")(pos))
+def decode_splits(length: int):
+    """(ranges, rows per range) of the kernel's grid over a cache of
+    `length` rows (NB · block): ranges of 128 rows (one range below 128),
+    the same at every position and every batch, so that one launch serves
+    every position and a stream's output does not depend on the batch it
+    is decoded in. Ranges past the position hold empty partials; the
+    merge runs whenever there is more than one range."""
+    return tuple(cuda_build.op("paged_decode_splits")(length))
 
 
 # ---------------------------------------------------------------------------
@@ -240,24 +252,39 @@ def paged_cross_attention(q: torch.Tensor, k_paged: torch.Tensor,
     return paged_decode_attention(q, k_paged, v_paged, valid_len - 1)
 
 
+def paged_slot(pos, block: int):
+    """(page, row) of decode position `pos` in pages of `block` rows: host
+    ints for a host int; for a 0-dim int64 tensor, two 1-element tensors on
+    its device, computed there (no host read). A decode step computes it
+    once; every layer's cache and scale writes take it."""
+    if isinstance(pos, torch.Tensor):
+        pos = pos.view(1)
+        return torch.div(pos, block, rounding_mode="floor"), pos % block
+    return pos // block, pos % block
+
+
 def paged_cache_update(cache: torch.Tensor, step_kv: torch.Tensor,
-                       pos: int) -> torch.Tensor:
-    """Write one step's (S, H, 1, dk) K or V into the paged cache at pos.
+                       slot) -> torch.Tensor:
+    """Write one step's (S, H, 1, dk) K or V into the paged cache at
+    `slot`, the position's `paged_slot`. A slot of device tensors writes
+    through an index put, with no host read; it writes the bytes that the
+    host slot of the same position writes.
 
     Writes IN PLACE (one (dk,) row per stream and head) and returns the
     same tensor."""
-    block = cache.shape[3]
-    cache[pos // block, :, :, pos % block, :] = step_kv[:, :, 0, :].to(cache.dtype)
+    page, row = slot
+    cache[page, :, :, row] = step_kv[:, :, 0, :].to(cache.dtype)
     return cache
 
 
 def paged_scale_update(scales: torch.Tensor, step_scale: torch.Tensor,
-                       pos: int) -> torch.Tensor:
-    """Write one step's (S, H, 1) fp32 scales into (S, NB, H, block) at pos.
+                       slot) -> torch.Tensor:
+    """Write one step's (S, H, 1) fp32 scales into (S, NB, H, block) at
+    `slot`, given as in `paged_cache_update`.
 
     Writes IN PLACE and returns the same tensor."""
-    block = scales.shape[3]
-    scales[:, pos // block, :, pos % block] = step_scale[:, :, 0]
+    page, row = slot
+    scales[:, page, :, row] = step_scale[:, :, 0]
     return scales
 
 
