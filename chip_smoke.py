@@ -17,7 +17,13 @@ Phases:
      and its bound. The paged kernel is checked with the position on the
      host and in a tensor on the card (the two outputs equal bit for bit),
      and timed with the position on the card at pos 127, 511 and 1023 on
-     its grid fixed by the cache length, at S = 8 and S = 48; the fused
+     its grid fixed by the cache length, at S = 8 and S = 48; the dense
+     int8 kernel is checked at the flagship's self-attention shapes (S =
+     104 and 208, L = 256, the step's bias row, the position on the host
+     and on the card), at t5_small's cross shape (S = 8 and 16, T = 256)
+     and with 2 and 3 query rows per head, and timed at both beside its
+     byte bound, its plain version, SDPA on dequantized bf16 K/V and the
+     paged kernel on int8 pages of the same rows; the fused
      log-mel kernel is held at B in
      {1, 8, 16}; the
      launch probe's own path is its launch-overhead measurement (eager
@@ -28,13 +34,15 @@ Phases:
      before it and read just after:
      a. t5_small: the CLI transcribes a seeded ~6 s sine-mixture WAV at
         full width (random weights from a seed) through --decode-path
-        fast with the beam-2 repair; the paged kernel's launches must
-        equal 8 (decoder layers) x the decode steps run;
+        fast with the beam-2 repair; the paged kernel's launches (self-
+        attention) and the dense int8 kernel's (the int8 cross K/V) must
+        each equal 8 (decoder layers) x the decode steps run;
      b. the flagship perceiver_tf_mc13 (kv_quant="int8c4p", int8 decoder
         weights): api.init_model + api.transcribe on a seeded 16 s song
         (8 segments, one batch, 104 decoder streams) with the beam-2
-        repair; the int4 cross kernel's launches must equal 8 x the
-        decode steps run, and the paged kernel must not launch;
+        repair; the int4 cross kernel's and the dense int8 kernel's
+        launches must each equal 8 x the decode steps run, and the paged
+        kernel must not launch;
   4. each kernel inside its model: 64 bf16 decode steps through the kernel
      against the plain path on the same tokens, and a small fp32 model on
      the card against the same model on the CPU;
@@ -137,8 +145,10 @@ Phases:
         into a model of another seed, whose logits must equal the source's.
  11. the grouped-query flagships perceiver_tf_mc13_mqa and
      perceiver_tf_mc13_gqa2 (decoder_kv_heads 1 and 2), slice 8, each with
-     every launch count set to 0 just before it and read just after (no
-     kernel launches: their caches are dense, as the JAX package's): at
+     every launch count set to 0 just before it and read just after (their
+     caches are dense, as the JAX package's: only the dense int8 kernel
+     launches, 2 x 8 a step, self and cross, each for the 6 or 3 query heads
+     of a KV head): at
      full width in fp32, random weights from seed 0, 2 segments of the 16 s
      song (L = 256) through transcribe_segments_array with the fast decode
      settings of a 13-channel decode (dense int8 self cache) and the beam-2
@@ -506,6 +516,164 @@ def time_int4(dev):
     return rows
 
 
+# the dense int8 kernel's shapes: the flagship's self-attention (H, dk, L)
+# at its greedy and beam stream counts, and t5_small's cross-attention
+H8, DK8, L8 = 6, 64, 256
+FLAGSHIP_STREAMS = (104, 208)
+T5_CROSS_STREAMS = (8, 16)
+
+
+def int8_case(S, M, n, pos, gen, dev, bias=True, heads=H8, dk=DK8):
+    """Whole int8 caches (S, heads, n, dk) of N(0, 1) rows with fp32 row
+    scales, q (S, heads, M, dk) fp32 and, with `bias`, a step bias row
+    (1, heads, M, n) as `T5Decoder.step_bias` builds it: a gathered,
+    transposed relative bias (not contiguous), -1e9 past pos."""
+    import torch
+    from yourmt3_tpu_torch.ops.kv_quant import quantize_kv
+    kq, ks = quantize_kv(torch.randn(S, heads, n, dk, generator=gen))
+    vq, vs = quantize_kv(torch.randn(S, heads, n, dk, generator=gen))
+    q = torch.randn(S, heads, M, dk, generator=gen)
+    b = None
+    if bias:
+        rel = (torch.randn(n, heads * M, generator=gen) * 0.5).T.reshape(1, heads, M, n)
+        b = (rel + torch.where(torch.arange(n) > pos, -1e9, 0.0)).to(dev)
+    return [t.to(dev) for t in (q, kq, ks, vq, vs)] + [b]
+
+
+def int8_tols(vq, vs, want, bf16_out):
+    """(max, mean) tolerances of the int8 kernel against its plain version:
+    both round each softmax weight w·vs to bf16 after summing exponentials
+    in another order, so a weight may round one bf16 ulp (2^-7) apart, and
+    the weights sum to one: 2^-7 max |v·vs|, plus one ulp of a bf16 output;
+    the mean stays at the fp32 summation order's."""
+    vmax = (vq.float() * vs[..., None]).abs().max().item()
+    ulp = 2.0 ** -7 * want.float().abs().max().item() if bf16_out else 0.0
+    return 2.0 ** -7 * vmax + ulp + 1e-5, 1e-3 if bf16_out else 1e-5
+
+
+def check_int8(dev):
+    """The dense int8 kernel against its plain version: the flagship's
+    self-attention (S = 104, 208; pos 0, 127, 255, on the host and on the
+    card, bit-identical), t5_small's cross-attention (S = 8, 16; no bias or
+    position), 2 and 3 query rows per head; fp32 and bf16 q."""
+    import torch
+    from yourmt3_tpu_torch.ops import kv_quant as kq
+    gen = torch.Generator().manual_seed(9)
+    worst = {"fp32": 0.0, "bf16": 0.0}
+    cases = ([(f"self S={S}", S, 1, 6, pos, True) for S in FLAGSHIP_STREAMS
+              for pos in (0, 127, 255)]
+             + [(f"cross S={S}", S, 1, 6, None, False) for S in T5_CROSS_STREAMS]
+             + [("grouped M=2", 8, 2, 3, 200, True), ("grouped M=3", 8, 3, 2, 255, True)])
+    for name, S, M, heads, pos, bias in cases:
+        q, k, ks, v, vs, b = int8_case(S, M, L8, 255 if pos is None else pos, gen, dev,
+                                       bias, heads)
+        errs = {}
+        for qt, qdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            qq = q.to(qdt)
+            got = kq.int8_decode_attention(qq, k, ks, v, vs, b, pos=pos)
+            want = kq.int8_decode_attention_plain(qq, k, ks, v, vs, b)
+            if pos is not None:
+                on_card = kq.int8_decode_attention(qq, k, ks, v, vs, b,
+                                                   pos=torch.tensor(pos, device=dev))
+                assert torch.equal(on_card, got), (name, pos, qt)
+            assert got.dtype == qdt and got.shape == (S, heads, M, DK8)
+            err = (got.float() - want.float()).abs()
+            top, mean = int8_tols(v, vs, want, qt == "bf16")
+            errs[qt] = err.max().item()
+            assert errs[qt] < top and err.mean().item() < mean, (name, pos, qt, errs, top)
+            worst[qt] = max(worst[qt], errs[qt])
+        torch.cuda.synchronize()
+        log(f"int8 kernel check {name} pos={pos} (host and card positions equal): "
+            f"max|err| fp32 q {errs['fp32']:.3e}, bf16 q {errs['bf16']:.3e} (tol: one "
+            f"bf16 ulp of every weight, {top:.3e})")
+    return worst
+
+
+def bound_int8(S, live, dk=DK8):
+    """(ms, "bytes" or "operations") of one call reading `live` rows: bf16 q
+    and out, int8 K and V and their fp32 scales, each moved once (the
+    benchmark's counts/flops.paged_decode_call)."""
+    nbytes = 2 * S * H8 * dk * 2 + 2 * S * H8 * live * (dk + 4)
+    ops = 4 * S * H8 * live * dk
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_int8(dev):
+    """Times over CUDA-graph replays, the 8 decoder layers' caches cycled:
+    the flagship's self-attention (S = 104, 208; pos 0, 127, 255 in a
+    tensor on the card, as the graphed step gives it) beside the plain
+    version over the whole cache (the route this kernel replaced), SDPA on
+    dequantized bf16 K/V with the bias as its mask, and the paged kernel on
+    int8 pages of 64 rows holding the same values; t5_small's
+    cross-attention (S = 8, 16, T = 256) beside the plain version and SDPA.
+    → {(kind, S, pos): row}."""
+    import torch
+    import torch.nn.functional as F
+    from yourmt3_tpu_torch.ops import decode_attention as da
+    from yourmt3_tpu_torch.ops import kv_quant as kq
+    from yourmt3_tpu_torch.ops.kv_quant import dequantize_kv
+    gen = torch.Generator().manual_seed(10)
+    layers, rows, block = 8, {}, 64
+    table = (torch.randn(BUCKETS, H8, generator=gen) * 0.5).to(dev)
+    dist = da.distance_buckets(BUCKETS, MAXD).to(dev)
+
+    def paged(t):  # (S, H, L, dk) → (NB, S, H, block, dk); (S, H, L) → (S, NB, H, block)
+        if t.ndim == 4:
+            S = t.shape[0]
+            return t.reshape(S, H8, L8 // block, block, -1).permute(2, 0, 1, 3, 4).contiguous()
+        return t.reshape(t.shape[0], H8, L8 // block, block).permute(0, 2, 1, 3).contiguous()
+
+    for kind, streams in (("self", FLAGSHIP_STREAMS), ("cross", T5_CROSS_STREAMS)):
+        for S in streams:
+            caches = [int8_case(S, 1, L8, L8 - 1, gen, dev, bias=False)[1:5]
+                      for _ in range(layers)]
+            q = torch.randn(S, H8, 1, DK8, generator=gen).to(dev).to(torch.bfloat16)
+            dense = [(dequantize_kv(k, ks).to(torch.bfloat16),
+                      dequantize_kv(v, vs).to(torch.bfloat16)) for k, ks, v, vs in caches]
+            pages = [[paged(t) for t in c] for c in caches] if kind == "self" else None
+            for pos in ((0, 127, 255) if kind == "self" else (None,)):
+                b = on_card = mask = None
+                live = L8
+                if pos is not None:
+                    live = pos + 1
+                    b = int8_case(1, 1, L8, pos, gen, dev, bias=True)[-1]
+                    on_card = torch.tensor(pos, device=dev)
+                    mask = b.masked_fill(b < -1e8, float("-inf")).to(torch.bfloat16)
+
+                def kernel():
+                    for c in caches:
+                        kq.int8_decode_attention(q, *c, b, pos=on_card)
+
+                def plain():
+                    for c in caches:
+                        kq.int8_decode_attention_plain(q, *c, b)
+
+                def library():
+                    for kd, vd in dense:
+                        F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask, scale=1.0)
+
+                def paged_kernel():
+                    for k, ks, v, vs in pages:
+                        da.paged_decode_attention(q, k, v, on_card, rel_table=table,
+                                                  dist_buckets=dist, k_scale=ks, v_scale=vs)
+
+                b_ms, b_by = bound_int8(S, live)
+                r = rows[kind, S, pos] = dict(
+                    ms=graph_ms(kernel, layers), plain_ms=graph_ms(plain, layers),
+                    library_ms=graph_ms(library, layers), bound_ms=b_ms, bound_by=b_by,
+                    paged_ms=graph_ms(paged_kernel, layers) if pages else None)
+                paged_msg = (f", paged kernel on int8 pages {r['paged_ms'] * 1e3:.2f} us"
+                             if pages else "")
+                log(f"time int8 {kind} S={S} H={H8} dk={DK8} L={L8} pos={pos} ({S * H8} "
+                    f"CTAs): kernel {r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} "
+                    f"us, library (SDPA, dense bf16) {r['library_ms'] * 1e3:.2f} us"
+                    f"{paged_msg}, bound ({b_by}) {b_ms * 1e3:.2f} us = "
+                    f"{100 * b_ms / r['ms']:.1f} % of the kernel's time")
+            del caches, dense, pages
+    return rows
+
+
 def events_ms(fn, iters: int) -> float:
     """Device ms per call: `fn` issued eagerly `iters` times between two
     CUDA events, after one warm-up call."""
@@ -811,6 +979,7 @@ def main_path(tmp):
     from yourmt3_tpu_torch.models import decoding
     from yourmt3_tpu_torch.ops import decode_attention as da
     from yourmt3_tpu_torch.ops.int4_cross_attention import int4_cross_attention
+    from yourmt3_tpu_torch.ops.kv_quant import int8_decode_attention
     from yourmt3_tpu_torch.tokens.midi_io import midi2note
 
     seconds = 6.0
@@ -827,15 +996,17 @@ def main_path(tmp):
     wall = time.perf_counter() - t0
     launches = da.paged_decode_attention.launches
     int4_launches = int4_cross_attention.launches
+    int8_launches = int8_decode_attention.launches
     greedy, beam = decoding.greedy_decode.steps, decoding.beam_decode.steps
     assert len(outs) == 1 and os.path.exists(outs[0]), outs
     notes = midi2note(outs[0])
     log(f"main path: t5_small fast decode, {seconds} s audio in {wall:.2f} s "
         f"(CLI wall incl. init) = {seconds / wall:.3f} audio-s/s; decode "
         f"steps greedy {greedy} + beam {beam}; kernel launches {launches}; "
-        f"notes {len(notes)}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        f"int8 cross launches {int8_launches}; notes {len(notes)}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     assert launches == 8 * (greedy + beam) and launches > 0, (launches, greedy, beam)
+    assert int8_launches == launches, (int8_launches, launches)
     assert int4_launches == 0, int4_launches
     return launches
 
@@ -846,9 +1017,11 @@ def reset_counts():
     from yourmt3_tpu_torch.ops import decode_attention as da
     from yourmt3_tpu_torch.ops import fused_logmel as fl
     from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    from yourmt3_tpu_torch.ops import kv_quant as kq
     from yourmt3_tpu_torch.ops import launch_probe as lp
     da.paged_decode_attention.launches = 0
     ia.int4_cross_attention.launches = 0
+    kq.int8_decode_attention.launches = 0
     fl.fused_logmel.launches = 0
     lp.launch_probe.launches = 0
     decoding.greedy_decode.steps = 0
@@ -863,6 +1036,7 @@ def flagship_path(tmp):
     from yourmt3_tpu_torch.models import decoding
     from yourmt3_tpu_torch.ops import decode_attention as da
     from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    from yourmt3_tpu_torch.ops import kv_quant as kq
     from yourmt3_tpu_torch.tokens.midi_io import midi2note
 
     seconds = 16.0
@@ -880,6 +1054,7 @@ def flagship_path(tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, paged = ia.int4_cross_attention.launches, da.paged_decode_attention.launches
+    int8 = kq.int8_decode_attention.launches
     greedy, beam = decoding.greedy_decode.steps, decoding.beam_decode.steps
     assert os.path.exists(out), out
     notes = midi2note(out)
@@ -887,13 +1062,15 @@ def flagship_path(tmp):
         f"(8 segments, 104 streams) in {wall:.2f} s (init {t_init:.2f} s + "
         f"transcribe {wall - t_init:.2f} s) = {seconds / wall:.3f} audio-s/s "
         f"({seconds / (wall - t_init):.3f} without init); decode steps greedy "
-        f"{greedy} + beam {beam}; int4 kernel launches {launches}; paged "
-        f"kernel launches {paged}; notes {len(notes)}; peak device memory "
+        f"{greedy} + beam {beam}; int4 kernel launches {launches}; dense int8 "
+        f"kernel launches {int8}; paged kernel launches {paged}; notes "
+        f"{len(notes)}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     layers = bundle.cfg.num_decoder_layers
     assert launches == layers * (greedy + beam) and launches > 0, (launches, greedy, beam)
+    assert int8 == launches, (int8, launches)  # the self-attention, one a layer
     assert paged == 0, paged
-    return launches
+    return launches, int8
 
 
 def kernel_in_model():
@@ -1190,6 +1367,7 @@ def train_path(tmp):
     from yourmt3_tpu_torch.ops import decode_attention as da
     from yourmt3_tpu_torch.ops import fused_logmel as fl
     from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    from yourmt3_tpu_torch.ops import kv_quant as kq
     from yourmt3_tpu_torch.ops.frontend import SpectrogramFrontend
     from yourmt3_tpu_torch.train.trainer import train
 
@@ -1221,7 +1399,8 @@ def train_path(tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fl.fused_logmel.launches
-    others = (da.paged_decode_attention.launches, ia.int4_cross_attention.launches)
+    others = (da.paged_decode_attention.launches, ia.int4_cross_attention.launches,
+              kq.int8_decode_attention.launches)
     peak = torch.cuda.max_memory_allocated() / 2**20
 
     losses = [m["loss"] for _, _, m in steps.records]
@@ -1238,7 +1417,7 @@ def train_path(tmp):
     log(f"  loss by step: {' '.join(f'{x:.3f}' for x in losses)}")
     log(f"  grad_norm by step: {' '.join(f'{x:.2f}' for x in gnorms)}")
     assert launches == TRAIN_STEPS, launches
-    assert others == (0, 0), others
+    assert others == (0, 0, 0), others
     assert all(np.isfinite(losses)) and all(np.isfinite(gnorms))
     assert np.mean(losses[-3:]) < np.mean(losses[:3]), losses
     assert not torch.equal(bundle.model.lm_head.weight, head0)
@@ -2508,7 +2687,9 @@ def grouped_flagship(preset, smi):
     its encoder and memory against the CPU's (phase 8c's limits); the
     card's memory decoded on the CPU, whose greedy tokens the card's may
     leave only at near-ties (MARGIN_ULPS); then the other caches and beam 2
-    on the card. No kernel may launch: the grouped caches are dense."""
+    on the card. The grouped caches are dense: the dense int8 kernel serves
+    the self- and cross-attention, each KV head's G query rows together,
+    and no other kernel may launch."""
     import torch
     from yourmt3_tpu_torch import api
     from yourmt3_tpu_torch.data.audio_io import slice_padded_array
@@ -2516,6 +2697,7 @@ def grouped_flagship(preset, smi):
     from yourmt3_tpu_torch.models.ymt3 import YMT3
     from yourmt3_tpu_torch.ops import decode_attention as da
     from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+    from yourmt3_tpu_torch.ops import kv_quant as kq
     t_all = time.perf_counter()
     task, over = "mc13_full_plus_256", api.fast_decode_overrides(13, 256)
     assert over == {"kv_quant": "int8"}, over
@@ -2559,6 +2741,7 @@ def grouped_flagship(preset, smi):
     peak = torch.cuda.max_memory_allocated() / 2**20
     greedy_steps, beam_steps = decoding.greedy_decode.steps, decoding.beam_decode.steps
     kernels = (da.paged_decode_attention.launches, ia.int4_cross_attention.launches)
+    int8 = kq.int8_decode_attention.launches
     enc_msg = encoder_card_vs_cpu(gpu, cpu, segs)
 
     # the card's memory decoded on the CPU: the card's tokens against it
@@ -2595,7 +2778,8 @@ def grouped_flagship(preset, smi):
         f"{over} and the beam-2 repair (smoke numbers, not a benchmark): "
         f"{wall:.2f} s = {audio_s / wall:.3f} audio-s/s, peak {peak:.1f} MiB; decode "
         f"steps greedy {greedy_steps} + beam {beam_steps}; notes {len(notes)}, errors "
-        f"{errs.total()}; paged / int4 kernel launches {kernels} (dense caches); "
+        f"{errs.total()}; paged / int4 kernel launches {kernels} (dense caches), "
+        f"dense int8 kernel launches {int8} (self and cross); "
         f"card vs CPU: {enc_msg}; greedy tokens from the card's memory: {same} of "
         f"{n} streams identical to the CPU's, widest parting margin {worst:.2f} bf16 "
         f"ulps (limit {MARGIN_ULPS}); the first {n_steps} tokens of the served int8 "
@@ -2603,6 +2787,8 @@ def grouped_flagship(preset, smi):
         f"{(beam == served).float().mean().item():.1%}; kernel launches after "
         f"them {kernels_after}; {time.perf_counter() - t_all:.1f} s")
     assert greedy_steps > 0 and kernels == kernels_after == (0, 0), kernels_after
+    layers = gpu.cfg.num_decoder_layers
+    assert int8 == 2 * layers * (greedy_steps + beam_steps), (int8, greedy_steps, beam_steps)
     assert worst <= MARGIN_ULPS, worst
 
 
@@ -2642,9 +2828,11 @@ def main(argv=None) -> int:
 
     worst = check_kernel(dev)
     worst4 = check_int4(dev)
+    worst8 = check_int8(dev)
     worst_mel = check_logmel(dev)
     rows = time_kernel(dev)
     rows4 = time_int4(dev)
+    rows8 = time_int8(dev)
     rows_mel = time_logmel(dev)
     probe = probe_path(dev)
     wrapper_host_us(dev)
@@ -2653,7 +2841,7 @@ def main(argv=None) -> int:
     from yourmt3_tpu_torch import api
     with tempfile.TemporaryDirectory() as tmp:
         launches = main_path(tmp)
-        launches4 = flagship_path(tmp)
+        launches4, launches8 = flagship_path(tmp)
         trained = train_path(tmp)
         evaluated = eval_path(tmp, dev, smi)
         t8 = time.perf_counter()
@@ -2677,6 +2865,7 @@ def main(argv=None) -> int:
         sine_song(16.0), 112, "int4_cross_kernel")
 
     r, r4, rm = rows[8, 1023], rows4[104], rows_mel[TRAIN_BATCH]
+    r8 = rows8["self", 104, 255]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "yourmt3_tpu_torch/ops/csrc/paged_decode_attention.cu",
@@ -2691,6 +2880,13 @@ def main(argv=None) -> int:
         "launches": launches4, "max_abs_err": worst4["bf16"],
         "ms": r4["ms"], "plain_ms": r4["plain_ms"], "bound_ms": r4["bound_ms"],
         "bound_by": r4["bound_by"], "library_ms": r4["library_ms"],
+    }, {
+        "name": "int8_decode_attention", "route": "cuda",
+        "source": "yourmt3_tpu_torch/ops/csrc/int8_decode_attention.cu",
+        "replaces": "none (yourmt3_tpu/ops/kv_quant.py int8_decode_attention, jnp)",
+        "launches": launches8, "max_abs_err": worst8["bf16"],
+        "ms": r8["ms"], "plain_ms": r8["plain_ms"], "bound_ms": r8["bound_ms"],
+        "bound_by": r8["bound_by"], "library_ms": r8["library_ms"],
     }, {
         "name": "fused_logmel", "route": "cuda",
         "source": "yourmt3_tpu_torch/ops/csrc/fused_logmel.cu",

@@ -46,8 +46,8 @@ def test_command_lines(fake_nvcc):
     assert all(c[0] == str(nvcc) for c in cmds)
     sources = [c[c.index("-c") + 1] for c in compiles]
     assert [os.path.basename(s) for s in sources] == [
-        "paged_decode_attention.cu", "int4_cross_attention.cu", "fused_logmel.cu",
-        "launch_probe.cu", "torch_ops.cpp"]
+        "paged_decode_attention.cu", "int4_cross_attention.cu",
+        "int8_decode_attention.cu", "fused_logmel.cu", "launch_probe.cu", "torch_ops.cpp"]
     assert all(os.path.exists(s) for s in sources)
     for c in compiles[:-1]:  # the kernels: sm_90a, no torch header
         assert ARCH in c and "-fPIC" in c
@@ -96,7 +96,8 @@ def sources(fake_nvcc, tmp_path, monkeypatch):
 def test_rebuild_compiles_only_what_changed(sources, tmp_path):
     run, build, csrc = sources, tmp_path / "build", tmp_path / "csrc"
     first = run()
-    assert len(first) == 6 and "-shared" in first[-1]  # 5 compiles, then the link
+    # a compile per kernel and one for the binding, then the link
+    assert len(first) == len(cuda_build.KERNELS) + 2 and "-shared" in first[-1]
     assert (build / "libyourmt3_ops.so").exists()
     assert not list(build.glob("*.tmp"))
     assert run() == []  # everything fresh
@@ -118,12 +119,12 @@ def test_failed_compile_raises_and_leaves_no_object(fake_nvcc, tmp_path, monkeyp
     assert not list((tmp_path / "build").glob("*.o"))
 
 
-# what every object depends on: a change to any recompiles all five sources
+# what every object depends on: a change to any recompiles every source
 @pytest.mark.parametrize("change", ["header", "flags", "nvcc", "torch"])
 def test_toolchain_or_header_change_recompiles_everything(sources, fake_nvcc, tmp_path,
                                                           monkeypatch, change):
     run, build = sources, tmp_path / "build"
-    assert len(run()) == 6
+    assert len(run()) == len(cuda_build.KERNELS) + 2
     assert run() == []
     assert (build / "libyourmt3_ops.so.stamp").exists()
     if change == "header":  # the header edited after the build, the sources before
@@ -139,7 +140,7 @@ def test_toolchain_or_header_change_recompiles_everything(sources, fake_nvcc, tm
     else:
         monkeypatch.setattr(torch, "__version__", "0.0.0+other")
     again = run()
-    assert len(again) == 6 and "-shared" in again[-1]
+    assert len(again) == len(cuda_build.KERNELS) + 2 and "-shared" in again[-1]
     assert sorted(os.path.basename(c[c.index("-c") + 1]) for c in again[:-1]) == sorted(
         [f"{n}.cu" for n in cuda_build.KERNELS] + ["torch_ops.cpp"])
     assert run() == []  # the new stamp is written

@@ -11,6 +11,7 @@ import torch
 
 from yourmt3_tpu_torch.ops import decode_attention as da
 from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+from yourmt3_tpu_torch.ops import kv_quant as kq
 from yourmt3_tpu_torch.ops.kv_quant import quantize_kv, quantize_kv4_crosspack
 
 pytestmark = pytest.mark.cuda
@@ -307,6 +308,146 @@ def test_int4_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="dk"):
         ia.int4_cross_attention(q[..., :24].contiguous(), k4, ks, v4, vs)
     assert ia.int4_cross_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# dense int8 decode attention
+
+def _int8_case(S, Hkv, M, L, dk, n, pos, bias, gen, dev):
+    """Whole int8 caches of N(0, 1) rows (S, Hkv, L, dk), q (S, Hkv, M, dk)
+    and, with `bias`, the decoder's step bias (1, Hkv, M, n): a relative
+    bias gathered and transposed as `T5Decoder.step_bias` gathers it (so
+    not contiguous), -1e9 past pos."""
+    kq_, ks = quantize_kv(torch.randn(S, Hkv, L, dk, generator=gen))
+    vq, vs = quantize_kv(torch.randn(S, Hkv, L, dk, generator=gen))
+    q = torch.randn(S, Hkv, M, dk, generator=gen)
+    b = None
+    if bias:
+        rel = torch.randn(n, Hkv * M, generator=gen).T.reshape(1, Hkv, M, n)
+        j = torch.arange(n)
+        b = rel + torch.where(j > (n - 1 if pos is None else pos), -1e9, 0.0)
+        b = b.to(dev)
+    return [t.to(dev) for t in (q, kq_, ks, vq, vs)] + [b]
+
+
+def _int8_err_bounds(vq, vs, want, qdt):
+    """(max, mean) |kernel - plain|. Both round each softmax weight w·vs to
+    bf16 after summing the exponentials in another order, so a weight may
+    round one bf16 ulp (2^-7 of it) apart; the weights sum to one, so the
+    output moves by at most 2^-7 · max |v · vs|. A bf16 output rounds the
+    same fp32 value, one ulp apart at a boundary. Such flips are rare: the
+    mean error stays at the fp32 summation order's."""
+    vmax = (vq.float() * vs[..., None]).abs().max().item()
+    out_ulp = 2.0 ** -7 * want.float().abs().max().item() if qdt == torch.bfloat16 else 0.0
+    return 2.0 ** -7 * vmax + out_ulp + 1e-5, 1e-3 if qdt == torch.bfloat16 else 1e-5
+
+
+# the flagship's self-attention (S = 104 greedy, 208 beam; H = 6, L = 256,
+# dk = 64, the step's bias row), t5_small's cross-attention (S = 8, 16; T =
+# 256, no bias, no position), grouped query rows (M = 2, 3), the other
+# widths, a horizon n below L
+INT8_CASES = {
+    "flagship_greedy": (104, 6, 1, 256, 64, 256, True),
+    "flagship_beam": (208, 6, 1, 256, 64, 256, True),
+    "t5_cross_8": (8, 6, 1, 256, 64, 256, False),
+    "t5_cross_16": (16, 6, 1, 256, 64, 256, False),
+    "gqa_m2": (8, 3, 2, 256, 64, 256, True),
+    "gqa_m3": (8, 2, 3, 128, 64, 128, True),
+    "dk16": (8, 4, 1, 256, 16, 256, True),
+    "dk32": (8, 4, 1, 256, 32, 256, True),
+    "dk128": (8, 4, 1, 256, 128, 256, True),
+    "horizon": (8, 6, 1, 1024, 64, 300, True),
+    "m8_long": (2, 2, 8, 1024, 128, 1024, True),
+}
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16], ids=["q32", "q16"])
+@pytest.mark.parametrize("case", list(INT8_CASES))
+def test_int8_decode_attention_matches_plain(dev, case, qdt):
+    """The kernel against the plain version over rows [0, n): at positions 0,
+    the middle and n - 1 with the position on the host and on the card (the
+    two outputs bit-identical), or with no position (cross-attention)."""
+    S, Hkv, M, L_, dk, n, bias = INT8_CASES[case]
+    gen = torch.Generator().manual_seed(S + M + dk + n)
+    positions = (0, n // 2 - 1, n - 1) if bias else (None,)
+    for pos in positions:
+        q, kq_, ks, vq, vs, b = _int8_case(S, Hkv, M, L_, dk, n, pos, bias, gen, dev)
+        q = q.to(qdt)
+        before = kq.int8_decode_attention.launches
+        got = kq.int8_decode_attention(q, kq_, ks, vq, vs, b, n=n, pos=pos)
+        assert kq.int8_decode_attention.launches == before + 1
+        want = kq.int8_decode_attention_plain(q, kq_[:, :, :n], ks[:, :, :n],
+                                              vq[:, :, :n], vs[:, :, :n], b)
+        if pos is not None:
+            on_card = kq.int8_decode_attention(q, kq_, ks, vq, vs, b, n=n,
+                                               pos=torch.tensor(pos, device=dev))
+        torch.cuda.synchronize()
+        assert got.dtype == qdt and got.shape == (S, Hkv, M, dk)
+        if pos is not None:
+            assert torch.equal(on_card, got), pos
+        err = (got.float() - want.float()).abs()
+        top, mean = _int8_err_bounds(vq[:, :, :n], vs[:, :, :n], want, qdt)
+        assert err.max().item() < top, (pos, err.max().item(), top)
+        assert err.mean().item() < mean, (pos, err.mean().item())
+
+
+def test_int8_op_replays_in_a_cuda_graph(dev):
+    """Captured once with the position in a tensor on the card, replayed at
+    positions up and down by rewriting it: the host position's output at
+    each, bit for bit (the flagship's beam shape)."""
+    gen = torch.Generator().manual_seed(19)
+    q, kq_, ks, vq, vs, _ = _int8_case(208, 6, 1, 256, 64, 256, None, False, gen, dev)
+    q = q.to(torch.bfloat16)
+    positions = (0, 63, 64, 127, 128, 200, 255)
+    biases = {p: _int8_case(1, 6, 1, 1, 64, 256, p, True, gen, dev)[-1] for p in positions}
+    bias = biases[0].clone()
+    eager = {p: kq.int8_decode_attention(q, kq_, ks, vq, vs, biases[p], pos=p)
+             for p in positions}
+    pos = torch.tensor(0, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kq.int8_decode_attention(q, kq_, ks, vq, vs, bias, pos=pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kq.int8_decode_attention(q, kq_, ks, vq, vs, bias, pos=pos)
+    for p in positions + positions[::-1]:
+        pos.fill_(p)
+        bias.copy_(biases[p])
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager[p]), p
+
+
+def test_int8_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    gen = torch.Generator().manual_seed(4)
+    q, kq_, ks, vq, vs, b = _int8_case(2, 2, 1, 64, 32, 64, 10, True, gen, dev)
+    before = kq.int8_decode_attention.launches
+    with pytest.raises(TypeError):
+        kq.int8_decode_attention(q.double(), kq_, ks, vq, vs, b, pos=10)
+    with pytest.raises(ValueError, match="dk"):
+        kq.int8_decode_attention(q[..., :24].contiguous(), kq_[..., :24].contiguous(), ks,
+                                 vq[..., :24].contiguous(), vs)
+    with pytest.raises(ValueError, match="M="):
+        kq.int8_decode_attention(q.expand(2, 2, 9, 32).contiguous(), kq_, ks, vq, vs)
+    with pytest.raises(ValueError, match="contiguous"):
+        kq.int8_decode_attention(q, kq_.transpose(2, 3).contiguous().transpose(2, 3),
+                                 ks, vq, vs)
+    with pytest.raises(ValueError, match="outside"):
+        kq.int8_decode_attention(q, kq_, ks, vq, vs, b, pos=64)
+    with pytest.raises(ValueError, match="rows"):
+        kq.int8_decode_attention(q, kq_, ks, vq, vs, n=65)
+    with pytest.raises(ValueError, match="bias has shape"):
+        kq.int8_decode_attention(q, kq_, ks, vq, vs, b[..., :32], n=64, pos=10)
+    with pytest.raises(ValueError, match="q on"):
+        kq.int8_decode_attention(q, kq_.cpu(), ks, vq, vs)
+    big = [torch.zeros(1, 1, 1025, 32, dtype=torch.int8, device=dev),
+           torch.zeros(1, 1, 1025, device=dev)]
+    with pytest.raises(ValueError, match="rows"):
+        kq.int8_decode_attention(q[:1, :1], *big, *big)
+    assert kq.int8_decode_attention.launches == before
 
 
 # ---------------------------------------------------------------------------

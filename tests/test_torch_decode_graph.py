@@ -5,9 +5,10 @@ On the CPU: `YMT3.decode_step` gives bit-identical logits and self caches
 with the position as a host int and as a 0-dim tensor on every dense
 self-cache path and on the paged int8 and bf16 caches, for the single-
 and the multi-channel decoder; the CPU decode loops never capture. On the
-card (marker `cuda`, skipped without one): the flagship's and full-width
-t5_small's (paged int8 caches) graphed greedy and beam decodes against the
-eager route of the same loops. The file imports nothing of JAX, so on a
+card (marker `cuda`, skipped without one): the flagship's (dense int8
+self caches through the int8 kernel) and full-width t5_small's (paged int8
+caches) graphed greedy and beam decodes against the eager route of the
+same loops. The file imports nothing of JAX, so on a
 machine without it run the card's tests with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_decode_graph.py
@@ -22,6 +23,7 @@ from yourmt3_tpu_torch.config.model import PERCEIVER_TF_MC13, T5_TINY
 from yourmt3_tpu_torch.models import decoding
 from yourmt3_tpu_torch.ops import decode_attention as da
 from yourmt3_tpu_torch.ops import int4_cross_attention as ia
+from yourmt3_tpu_torch.ops import kv_quant
 from yourmt3_tpu_torch.utils import profiling
 
 KV_QUANTS = ("none", "int8", "int8c4", "int8c4p", "int4")
@@ -224,6 +226,31 @@ def test_graphed_beam_decode_matches_eager(flagship, monkeypatch):
     assert (e_steps, e_launches, e_captures) == (steps, layers * steps, 0)
     assert torch.equal(ids, want)
     assert peak <= e_peak, (peak, e_peak)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam", [1, 2], ids=["greedy", "beam2"])
+def test_graphed_dense_int8_decode_matches_eager(flagship, monkeypatch, beam):
+    """104 streams (208 beams), L = 256, the dense int8 self caches read in
+    place by the int8 kernel up to the position (the graph's on the card):
+    the graphed loop's ids equal the eager loop's, and 8 int8 launches a step
+    on both routes."""
+    model, memory = flagship
+    layers = model.cfg.num_decoder_layers
+    kw = dict(prefix_ids=[3], kernel=kv_quant.int8_decode_attention)
+    if beam == 1:
+        fn = decoding.greedy_decode
+        kw.update(ban_eos=True)
+    else:
+        fn = decoding.beam_decode
+        kw.update(beam_size=beam)
+    ids, steps, launches, captures, replays, _ = _decode_counted(fn, model, memory, **kw)
+    assert steps > 1 and (captures, replays) == (1, steps - 1)
+    assert launches == layers * steps
+    _eager(monkeypatch)
+    want, e_steps, e_launches, e_captures, _, _ = _decode_counted(fn, model, memory, **kw)
+    assert (e_steps, e_launches, e_captures) == (steps, layers * steps, 0)
+    assert torch.equal(ids, want)
 
 
 # ---------------------------------------------------------------------------

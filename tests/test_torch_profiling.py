@@ -19,7 +19,7 @@ from yourmt3_tpu_torch.config.audio import AudioConfig
 from yourmt3_tpu_torch.data.audio_io import write_wav
 from yourmt3_tpu_torch.models import decoding
 from yourmt3_tpu_torch.ops import (decode_attention, fused_logmel,
-                                   int4_cross_attention, launch_probe)
+                                   int4_cross_attention, kv_quant, launch_probe)
 from yourmt3_tpu_torch.parallel import tensor_parallel
 from yourmt3_tpu_torch.train import trainer
 from yourmt3_tpu_torch.utils import profiling
@@ -194,6 +194,8 @@ def test_counters_are_the_attributes(monkeypatch):
              decode_attention.paged_decode_attention, "launches"),
             ("kernel.int4_cross_attention.launches",
              int4_cross_attention.int4_cross_attention, "launches"),
+            ("kernel.int8_decode_attention.launches",
+             kv_quant.int8_decode_attention, "launches"),
             ("kernel.fused_logmel.launches", fused_logmel.fused_logmel, "launches"),
             ("kernel.launch_probe.launches", launch_probe.launch_probe, "launches")]):
         monkeypatch.setattr(obj, attr, 1000 + i)
@@ -219,8 +221,8 @@ def test_a_replay_advances_the_kernel_counters(monkeypatch):
     assert got["kernel.int4_cross_attention.launches"] == 21
     assert got["kernel.fused_logmel.launches"] == 1
     assert set(profiling.launches()) == {
-        "paged_decode_attention", "int4_cross_attention", "fused_logmel",
-        "launch_probe"}
+        "paged_decode_attention", "int4_cross_attention", "int8_decode_attention",
+        "fused_logmel", "launch_probe"}
 
 
 def test_idle_by_span_on_synthetic_intervals():

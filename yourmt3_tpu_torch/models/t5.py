@@ -17,7 +17,9 @@ the decode-attention kernel (ops/decode_attention.py), which builds the
 bias itself and, like the paged cache writes, reads a device position
 where it is given one; with
 kv_quant="int8c4p" the cross-attention runs through the int4 kernel
-(ops/int4_cross_attention.py).
+(ops/int4_cross_attention.py). Dense int8 self caches and int8 cross K/V
+go through the int8 decode-attention kernel (ops/kv_quant.py), which
+reads the self caches in place up to the position, a device one too.
 """
 
 from __future__ import annotations
@@ -216,16 +218,21 @@ class T5DecoderLayer(nn.Module):
         elif cfg.kv_quant in INT8_SELF + ("int4",):
             # dense int8 (values (S,H,L,dk) int8) or int4 (interleaved
             # nibbles (S,H,L,dk/2) uint8), scales (S,H,L) fp32
-            quant, attend = ((quantize_kv4, int4_decode_attention)
-                             if cfg.kv_quant == "int4"
-                             else (quantize_kv, int8_decode_attention))
+            int4 = cfg.kv_quant == "int4"
+            quant = quantize_kv4 if int4 else quantize_kv
             kq_s, ks_s = quant(k_step)
             vq_s, vs_s = quant(v_step)
             for cache, step in zip((*ck, *cv), (kq_s, ks_s, vq_s, vs_s)):
                 write_position(cache, pos, step)
             n = kv_len or ck[0].shape[2]
-            att = attend(q, ck[0][:, :, :n], ck[1][:, :, :n],
-                         cv[0][:, :, :n], cv[1][:, :, :n], step_bias)
+            if int4:
+                att = int4_decode_attention(q, ck[0][:, :, :n], ck[1][:, :, :n],
+                                            cv[0][:, :, :n], cv[1][:, :, :n],
+                                            step_bias)
+            else:
+                # on the card the kernel reads the caches in place, rows
+                # up to the position
+                att = int8_decode_attention(q, *ck, *cv, step_bias, n=n, pos=pos)
         elif cfg.use_pallas_decode:
             # bf16/fp32 paged
             paged_cache_update(ck, k_step, slot)
@@ -315,7 +322,9 @@ class T5Decoder(nn.Module):
         if cfg.kv_quant in ("int4", "int8c4"):
             return [(quantize_kv4(k), quantize_kv4(v)) for k, v in kvs]
         if cfg.kv_quant == "int8":
-            return [(quantize_kv(k), quantize_kv(v)) for k, v in kvs]
+            # contiguous (S, H, T, dk), as the int8 attention kernel reads them
+            return [(quantize_kv(k.contiguous()), quantize_kv(v.contiguous()))
+                    for k, v in kvs]
         if cfg.use_pallas_decode:
             # paged layout for the cross pass of the kernel; block must
             # divide T exactly (no padded columns)

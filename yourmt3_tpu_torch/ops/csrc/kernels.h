@@ -17,6 +17,8 @@ constexpr int LOGMEL_MIN_NFFT = 256;    // FFT sizes: powers of two in [MIN, MAX
 constexpr int LOGMEL_MAX_NFFT = 4096;
 constexpr int LOGMEL_MAX_TILE = 64;     // frames per CTA: even, in [2, MAX]
 constexpr int LOGMEL_MAX_MELS = 512;    // mel columns: their bands stay in registers
+constexpr int INT8_DECODE_MAX_ROWS = 1024;  // rows a call reads: their logits stay in shared memory
+constexpr int INT8_DECODE_MAX_M = 8;        // query rows per KV head
 
 extern "C" {
 
@@ -43,6 +45,18 @@ int int4_cross_attention_launch(const void* q, const void* k4, const void* ks,
                                 const void* v4, const void* vs, void* out,
                                 int S, int H, int dk, int T, int q_dtype,
                                 void* stream);
+
+// q (S, H, M, dk) fp32 (q_dtype 0) or bf16 (1); k, v (S, H, L, dk) int8;
+// ks, vs (S, H, L); bias (1, H, M, n) with the given strides, or null. The
+// rows read are [0, min(pos + 1, n)) with the position *pos_dev, read on
+// the device, where pos_dev is not null, else pos where pos >= 0; all n
+// rows where pos < 0.
+int int8_decode_attention_launch(const void* q, const void* k, const float* ks,
+                                 const void* v, const float* vs, const float* bias,
+                                 int64_t bias_h, int64_t bias_m, int64_t bias_j,
+                                 void* out, int S, int H, int M, int L, int dk, int n,
+                                 const int64_t* pos_dev, int pos, int q_dtype,
+                                 void* stream);
 
 // window, twiddles, bands and weights in the layout of
 // ops/fused_logmel.py:pack_bases; frames_per_cta even, in [2,

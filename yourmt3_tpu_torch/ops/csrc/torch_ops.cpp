@@ -13,6 +13,7 @@
 //   torch.ops.yourmt3_tpu_torch.paged_decode_attention   csrc/paged_decode_attention.cu
 //   torch.ops.yourmt3_tpu_torch.paged_decode_splits      (its split choice)
 //   torch.ops.yourmt3_tpu_torch.int4_cross_attention     csrc/int4_cross_attention.cu
+//   torch.ops.yourmt3_tpu_torch.int8_decode_attention    csrc/int8_decode_attention.cu
 //   torch.ops.yourmt3_tpu_torch.fused_logmel             csrc/fused_logmel.cu
 //   torch.ops.yourmt3_tpu_torch.launch_probe             csrc/launch_probe.cu
 
@@ -216,6 +217,71 @@ Tensor int4_cross_attention(const Tensor& q, const Tensor& k4, const Tensor& ks,
   return q.dim() == 4 ? out.unsqueeze(2) : out;
 }
 
+// q (S, H, M, dk); k_q, v_q (S, H, L, dk) int8, the whole caches; k_s, v_s
+// (S, H, L) fp32; bias (1, H, M, n) fp32, any strides; rows [0, n) with no
+// position, [0, min(pos + 1, n)) with one
+Tensor int8_decode_attention(const Tensor& q, const Tensor& k_q, const Tensor& k_s,
+                             const Tensor& v_q, const Tensor& v_s, const OptTensor& bias,
+                             int64_t n, const OptTensor& pos) {
+  TORCH_CHECK_VALUE(q.dim() == 4, "q must be (S, H, M, dk), got ", q.sizes());
+  const int64_t S = q.size(0), H = q.size(1), M = q.size(2), dk = q.size(3);
+  check(q, "q", q, "q", {ScalarType::Float, ScalarType::BFloat16});
+  TORCH_CHECK_VALUE(is_dk(dk), "dk=", dk, " not in (16, 32, 64, 128)");
+  TORCH_CHECK_VALUE(1 <= M && M <= INT8_DECODE_MAX_M, "M=", M,
+                    " query rows per head: the kernel takes 1 to ", INT8_DECODE_MAX_M);
+  TORCH_CHECK_VALUE(k_q.dim() == 4, "k_q must be (S, H, L, dk), got ", k_q.sizes());
+  const int64_t L = k_q.size(2);
+  const std::vector<int64_t> vals{S, H, L, dk}, scales{S, H, L};
+  check(k_q, "k_q", q, "q", {ScalarType::Char}, vals);
+  check(v_q, "v_q", q, "q", {ScalarType::Char}, vals);
+  check(k_s, "k_s", q, "q", {ScalarType::Float}, scales);
+  check(v_s, "v_s", q, "q", {ScalarType::Float}, scales);
+  for (const Tensor* t : {&k_q, &v_q})
+    TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                      t == &k_q ? "k_q" : "v_q", " must be 16-byte aligned");
+  TORCH_CHECK_VALUE(1 <= n && n <= L && n <= INT8_DECODE_MAX_ROWS, "n=", n,
+                    ": the kernel reads 1 to min(L=", L, ", ", INT8_DECODE_MAX_ROWS,
+                    ") rows");
+  if (bias.has_value()) {  // any strides: the step's bias row is a transposed gather
+    TORCH_CHECK_VALUE(bias->device() == q.device(), "bias is on ", bias->device(),
+                      ", q on ", q.device());
+    TORCH_CHECK_TYPE(bias->scalar_type() == ScalarType::Float, "bias has dtype ",
+                     bias->scalar_type(), ", kernel takes (float)");
+    const std::vector<int64_t> want{1, H, M, n};
+    TORCH_CHECK_VALUE(bias->sizes() == c10::IntArrayRef(want), "bias has shape ",
+                      bias->sizes(), ", expected ", c10::IntArrayRef(want));
+  }
+  // pos: none (every row), a host value (a CPU tensor), checked here, or a
+  // tensor on q's device that the kernel reads
+  int64_t pos_h = -1;
+  const int64_t* pos_dev = nullptr;
+  if (pos.has_value()) {
+    TORCH_CHECK_VALUE(pos->dim() == 0 && pos->scalar_type() == ScalarType::Long,
+                      "pos must be a 0-dim int64 tensor, got ", pos->scalar_type(),
+                      " of shape ", pos->sizes());
+    if (pos->is_cpu()) {
+      pos_h = *pos->data_ptr<int64_t>();
+      TORCH_CHECK_VALUE(0 <= pos_h && pos_h < n, "pos=", pos_h, " outside [0, ", n, ")");
+    } else {
+      TORCH_CHECK_VALUE(pos->device() == q.device(), "pos is on ", pos->device(),
+                        ", q on ", q.device());
+      pos_dev = pos->data_ptr<int64_t>();
+    }
+  }
+
+  const c10::cuda::CUDAGuard guard(q.device());
+  Tensor out = at::empty({S, H, M, dk}, q.options());
+  const int err = int8_decode_attention_launch(
+      q.data_ptr(), k_q.data_ptr(), k_s.data_ptr<float>(), v_q.data_ptr(),
+      v_s.data_ptr<float>(), fptr(bias), bias.has_value() ? bias->stride(1) : 0,
+      bias.has_value() ? bias->stride(2) : 0, bias.has_value() ? bias->stride(3) : 0,
+      out.data_ptr(), static_cast<int>(S), static_cast<int>(H), static_cast<int>(M),
+      static_cast<int>(L), static_cast<int>(dk), static_cast<int>(n), pos_dev,
+      static_cast<int>(pos_h), dtype_code(q.scalar_type()), stream_of(q));
+  check_launch(err, "int8_decode_attention");
+  return out;
+}
+
 // window (n_fft,), twiddles (n_fft - R0, 2), bands (n_mels, 3) int32 and
 // weights (nnz,): the layout of ops/fused_logmel.py:pack_bases
 Tensor fused_logmel(const Tensor& audio, const Tensor& window, const Tensor& twiddles,
@@ -288,6 +354,8 @@ TORCH_LIBRARY(yourmt3_tpu_torch, m) {
         &paged_decode_splits);
   m.def("int4_cross_attention(Tensor q, Tensor k4, Tensor ks, Tensor v4, Tensor vs) "
         "-> Tensor");
+  m.def("int8_decode_attention(Tensor q, Tensor k_q, Tensor k_s, Tensor v_q, Tensor v_s, "
+        "Tensor? bias, int n, Tensor? pos) -> Tensor");
   m.def("fused_logmel(Tensor audio, Tensor window, Tensor twiddles, Tensor bands, "
         "Tensor weights, int input_frames, int num_frames, int hop_length, "
         "float log_offset, bool power2, int frames_per_cta) -> Tensor");
@@ -298,13 +366,14 @@ TORCH_LIBRARY(yourmt3_tpu_torch, m) {
 // spares each call the dispatcher's boxed autograd fallback.
 TORCH_LIBRARY_IMPL(yourmt3_tpu_torch, Autograd, m) {
   for (const char* name : {"paged_decode_attention", "int4_cross_attention",
-                           "fused_logmel", "launch_probe"})
+                           "int8_decode_attention", "fused_logmel", "launch_probe"})
     m.impl(name, torch::CppFunction::makeFallthrough());
 }
 
 TORCH_LIBRARY_IMPL(yourmt3_tpu_torch, CUDA, m) {
   m.impl("paged_decode_attention", &paged_decode_attention);
   m.impl("int4_cross_attention", &int4_cross_attention);
+  m.impl("int8_decode_attention", &int8_decode_attention);
   m.impl("fused_logmel", &fused_logmel);
   m.impl("launch_probe", &launch_probe);
 }

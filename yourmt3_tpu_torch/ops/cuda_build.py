@@ -30,8 +30,8 @@ from typing import List
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "build")
-KERNELS = ("paged_decode_attention", "int4_cross_attention", "fused_logmel",
-           "launch_probe")
+KERNELS = ("paged_decode_attention", "int4_cross_attention", "int8_decode_attention",
+           "fused_logmel", "launch_probe")
 BINDING = "torch_ops"
 HEADER = "kernels.h"
 LIBRARY = os.path.join(BUILD_DIR, "libyourmt3_ops.so")

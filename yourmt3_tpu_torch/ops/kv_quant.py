@@ -12,6 +12,11 @@ int4 values lie in [-7, 7] and are stored biased by +8, two to a byte.
 int4 cross-attention kernel (ops/int4_cross_attention.py). A zeroed
 cache byte decodes to -8, which is harmless: unwritten positions carry
 zero scales.
+
+`int8_decode_attention` launches the hand-written kernel
+(`csrc/int8_decode_attention.cu`) for CUDA tensors and runs
+`int8_decode_attention_plain` for CPU tensors; the int4 attention stays
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -19,6 +24,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from ..utils import profiling
+from . import cuda_build
 
 QKV = Tuple[torch.Tensor, torch.Tensor]  # (int8 values, fp32 row scales)
 
@@ -45,13 +53,13 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale[..., None]
 
 
-def int8_decode_attention(q: torch.Tensor,  # (S, H, 1, dk) float
-                          k_q: torch.Tensor,  # (S, H, L, dk) int8
-                          k_s: torch.Tensor,  # (S, H, L) fp32
-                          v_q: torch.Tensor,  # (S, H, L, dk) int8
-                          v_s: torch.Tensor,  # (S, H, L) fp32
-                          bias: Optional[torch.Tensor]  # (1, H, 1, L) or None
-                          ) -> torch.Tensor:
+def int8_decode_attention_plain(q: torch.Tensor,  # (S, H, M, dk) float
+                                k_q: torch.Tensor,  # (S, H, L, dk) int8
+                                k_s: torch.Tensor,  # (S, H, L) fp32
+                                v_q: torch.Tensor,  # (S, H, L, dk) int8
+                                v_s: torch.Tensor,  # (S, H, L) fp32
+                                bias: Optional[torch.Tensor]  # (1, H, M, L) or None
+                                ) -> torch.Tensor:
     """softmax(q·K^T + bias)·V with int8 K/V, dequantized inside the
     products: logits scale by k_s per column, the V row scales fold into
     the softmax weights.
@@ -61,14 +69,54 @@ def int8_decode_attention(q: torch.Tensor,  # (S, H, 1, dk) float
     in fp32."""
     f32, bf16 = torch.float32, torch.bfloat16
     logits = torch.matmul(q.to(bf16).to(f32),
-                          k_q.to(f32).transpose(-1, -2))  # (S, H, 1, L)
+                          k_q.to(f32).transpose(-1, -2))  # (S, H, M, L)
     logits = logits * k_s[:, :, None, :]
     if bias is not None:
         logits = logits + bias
     w = torch.softmax(logits, dim=-1)
     w = w * v_s[:, :, None, :]
-    out = torch.matmul(w.to(bf16).to(f32), v_q.to(f32))  # (S, H, 1, dk)
+    out = torch.matmul(w.to(bf16).to(f32), v_q.to(f32))  # (S, H, M, dk)
     return out.to(q.dtype)
+
+
+_op = None  # torch.ops.yourmt3_tpu_torch.int8_decode_attention, bound at first use
+
+
+def int8_decode_attention(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+                          v_q: torch.Tensor, v_s: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          n: Optional[int] = None, pos=None) -> torch.Tensor:
+    """`int8_decode_attention_plain` over the caches' first n rows (n None:
+    all L). q (S, H, M, dk): M query rows per KV head (the group under
+    grouped heads). bias (1, H, M, n) fp32 or None. pos: None, a host int
+    or a 0-dim int64 tensor on the caches' device; with a position, the
+    bias must mask the rows past it (the decoder's step bias holds -1e9
+    there, whose exp is exactly 0), so they add nothing.
+
+    CPU tensors go to the plain version over rows [0, n). CUDA tensors
+    launch the hand-written kernel (`csrc/int8_decode_attention.cu`, the
+    operator `torch.ops.yourmt3_tpu_torch.int8_decode_attention`), which
+    reads the whole caches in place, rows [0, min(pos + 1, n)) with a
+    position, and checks the arguments (and counts one launch), or raise.
+    Nothing falls back from one to the other."""
+    if pos is not None and bias is None:
+        raise ValueError("a position needs the bias that masks the rows past it")
+    n = k_q.shape[2] if n is None else n
+    if q.is_cpu:
+        return int8_decode_attention_plain(q, k_q[:, :, :n], k_s[:, :, :n],
+                                           v_q[:, :, :n], v_s[:, :, :n], bias)
+    global _op
+    if _op is None:
+        _op = cuda_build.op("int8_decode_attention")
+    if pos is not None and not isinstance(pos, torch.Tensor):
+        pos = torch.tensor(int(pos))
+    out = _op(q, k_q, k_s, v_q, v_s, bias, n, pos)
+    int8_decode_attention.launches += 1
+    return out
+
+
+int8_decode_attention.launches = 0  # kernel launches since the last reset
+profiling.register_kernel("int8_decode_attention", int8_decode_attention)
 
 
 def _quantize_int4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
