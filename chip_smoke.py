@@ -526,7 +526,7 @@ T5_CROSS_STREAMS = (8, 16)
 def int8_case(S, M, n, pos, gen, dev, bias=True, heads=H8, dk=DK8):
     """Whole int8 caches (S, heads, n, dk) of N(0, 1) rows with fp32 row
     scales, q (S, heads, M, dk) fp32 and, with `bias`, a step bias row
-    (1, heads, M, n) as `T5Decoder.step_bias` builds it: a gathered,
+    (1, heads, M, n) as `kv_cache.step_bias` builds it: a gathered,
     transposed relative bias (not contiguous), -1e9 past pos."""
     import torch
     from yourmt3_tpu_torch.ops.kv_quant import quantize_kv
@@ -1817,10 +1817,10 @@ def early_exit_at_stop_token(bundle, audio, rows, L, kernel, smi):
 
 def batch_invariance(dev, smi):
     """Phase 7f: each decode kernel on a full batch and on the kept
-    streams of a compacted one (the cache rows gathered as
-    reorder_cache_streams gathers them); max |diff| of the kept rows."""
+    streams of a compacted one (the cache rows gathered as the cache
+    layouts gather them: pages on axis 1, everything else on axis 0); max
+    |diff| of the kept rows."""
     import torch
-    from yourmt3_tpu_torch.models.decoding import reorder_cache_streams
     from yourmt3_tpu_torch.ops import decode_attention as da
     from yourmt3_tpu_torch.ops import int4_cross_attention as ia
     gen = torch.Generator().manual_seed(9)
@@ -1835,8 +1835,8 @@ def batch_invariance(dev, smi):
                                          k_scale=pages["ks"], v_scale=pages["vs"])
         for kept in (8, 16):
             idx = torch.randperm(full, generator=gen)[:kept].sort().values.to(dev)
-            k, v, ks, vs = reorder_cache_streams(
-                [pages["k"], pages["v"], pages["ks"], pages["vs"]], idx)
+            k, v = (pages[n].index_select(1, idx) for n in ("k", "v"))
+            ks, vs = (pages[n].index_select(0, idx) for n in ("ks", "vs"))
             got = da.paged_decode_attention(q[idx], k, v, pos, rel_table=table,
                                             dist_buckets=dist, k_scale=ks, v_scale=vs)
             diff = (got.float() - want[idx].float()).abs().max().item()
@@ -1850,7 +1850,7 @@ def batch_invariance(dev, smi):
     want = ia.int4_cross_attention(q, *kv)
     for kept in (8, 16):
         idx = torch.randperm(full, generator=gen)[:kept].sort().values.to(dev)
-        got = ia.int4_cross_attention(q[idx], *reorder_cache_streams(kv, idx))
+        got = ia.int4_cross_attention(q[idx], *(x.index_select(0, idx) for x in kv))
         diff = (got.float() - want[idx].float()).abs().max().item()
         log(f"[{smi}] batch invariance, int4 cross kernel (S {full}, T {T4}): "
             f"{kept} of {full} streams vs the full batch: max|diff| {diff:.3e}")

@@ -316,7 +316,7 @@ def test_int4_wrapper_rejects_what_the_kernel_does_not_take(dev):
 def _int8_case(S, Hkv, M, L, dk, n, pos, bias, gen, dev):
     """Whole int8 caches of N(0, 1) rows (S, Hkv, L, dk), q (S, Hkv, M, dk)
     and, with `bias`, the decoder's step bias (1, Hkv, M, n): a relative
-    bias gathered and transposed as `T5Decoder.step_bias` gathers it (so
+    bias gathered and transposed as `kv_cache.step_bias` gathers it (so
     not contiguous), -1e9 past pos."""
     kq_, ks = quantize_kv(torch.randn(S, Hkv, L, dk, generator=gen))
     vq, vs = quantize_kv(torch.randn(S, Hkv, L, dk, generator=gen))

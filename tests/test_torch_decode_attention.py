@@ -17,6 +17,7 @@ import torch
 from yourmt3_tpu.models.layers import relative_position_bucket as jax_bucket
 from yourmt3_tpu.ops import kv_quant as jkv
 from yourmt3_tpu.ops.pallas import decode_attention as jda
+from yourmt3_tpu_torch.models.kv_cache import device_position
 from yourmt3_tpu_torch.models.layers import relative_position_bucket
 from yourmt3_tpu_torch.ops import decode_attention as pda
 from yourmt3_tpu_torch.ops.kv_quant import (dequantize_kv,
@@ -121,8 +122,9 @@ def test_cross_attention_and_dense_reference_match_jax():
 @pytest.mark.parametrize("block", [64, 128])
 def test_cache_helpers_match_jax_exactly(block, position):
     """The paged cache and scale writes at the edges of the pages, at the
-    slot of a host int or of a 0-dim tensor (a graphed step's device
-    position: an index put, no host read): the same bytes as JAX's
+    slot of a host int turned into the device position by the model's
+    `device_position` or of a 0-dim tensor (a graphed step's device
+    position): an index put, no host read, and the same bytes as JAX's
     writes."""
     rng = np.random.default_rng(block)
     L = NB * block
@@ -133,7 +135,8 @@ def test_cache_helpers_match_jax_exactly(block, position):
     for pos in (0, block - 1, block, L - 1):
         step = rng.standard_normal((S, H, 1, DK)).astype(np.float32)
         sc = rng.standard_normal((S, H, 1)).astype(np.float32)
-        at = pda.paged_slot(pos if position == "int" else torch.tensor(pos), block)
+        at = pda.paged_slot(device_position(pos, "cpu") if position == "int"
+                            else torch.tensor(pos), block)
         out = pda.paged_cache_update(cache, torch.from_numpy(step), at)
         assert out is cache  # in place
         pda.paged_scale_update(scales, torch.from_numpy(sc), at)

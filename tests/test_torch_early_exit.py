@@ -25,7 +25,7 @@ from yourmt3_tpu.models.decoding import \
 from yourmt3_tpu.models.ymt3 import YMT3 as JaxYMT3
 from yourmt3_tpu_torch import api
 from yourmt3_tpu_torch.config.model import T5_TINY
-from yourmt3_tpu_torch.models import decoding
+from yourmt3_tpu_torch.models import kv_cache
 from yourmt3_tpu_torch.models.decoding import (greedy_decode,
                                                greedy_decode_early_exit)
 from yourmt3_tpu_torch.models.ymt3 import YMT3
@@ -75,15 +75,16 @@ def _stop_token(ids):
 
 @pytest.fixture
 def gathered(monkeypatch):
-    """Record the row count of every compaction's gather."""
+    """Record the row count of every compaction's gather (the self and
+    the cross caches' layouts)."""
     sizes = []
-    gather = decoding.reorder_cache_streams
+    gather = kv_cache._Layout.reorder
 
-    def recording(kvs, idx):
+    def recording(layout, kvs, idx):
         sizes.append(int(idx.shape[0]))
-        return gather(kvs, idx)
+        return gather(layout, kvs, idx)
 
-    monkeypatch.setattr(decoding, "reorder_cache_streams", recording)
+    monkeypatch.setattr(kv_cache._Layout, "reorder", recording)
     return sizes
 
 

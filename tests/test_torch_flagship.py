@@ -31,8 +31,7 @@ from yourmt3_tpu.train.import_torch import reference_style_state_dict
 from yourmt3_tpu_torch import api
 from yourmt3_tpu_torch.config.model import PERCEIVER_TF_MC13
 from yourmt3_tpu_torch.data.audio_io import slice_padded_array
-from yourmt3_tpu_torch.models.decoding import (beam_decode, greedy_decode,
-                                               reorder_cache_streams)
+from yourmt3_tpu_torch.models.decoding import beam_decode, greedy_decode
 from yourmt3_tpu_torch.models.layers import QuantDense
 from yourmt3_tpu_torch.models.ymt3 import YMT3
 from yourmt3_tpu_torch.ops.int4_cross_attention import int4_cross_attention
@@ -335,7 +334,7 @@ def test_beam_choices_follow_jax(bundles, jax_memory):
             parent, token = top // V, top % V
             flat = (np.arange(S)[:, None] * K + parent).reshape(-1)
             kv_j = jax.tree_util.tree_map(lambda x: x[jnp.asarray(flat)], kv_j)
-            kv_p = reorder_cache_streams(kv_p, torch.from_numpy(flat))
+            kv_p = pb.model.decoder.self_cache.reorder(kv_p, torch.from_numpy(flat))
             buf = np.take_along_axis(buf, parent[:, :, None], 1)
             buf[:, :, pos + 1] = token
             done = np.take_along_axis(done, parent, 1) | (token == EOS_ID)

@@ -1,6 +1,7 @@
 """The port's T5 model (t5_tiny, fp32, weights bridged from JAX) against
-the JAX package: encoder, teacher-forced logits, cross K/V and the
-decode_step paths (dense, paged, int8 paged, int8 dense)."""
+the JAX package: encoder, teacher-forced logits, cross K/V, the
+decode_step paths of every (kv_quant, use_pallas_decode) pair that
+ModelConfig accepts, and the stream reorder of every cache layout."""
 
 import functools
 
@@ -11,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from yourmt3_tpu.models.decoding import _reorder_cache_streams as jax_reorder
 from yourmt3_tpu.models.ymt3 import YMT3 as JaxYMT3
 from yourmt3_tpu_torch.models.ymt3 import YMT3
 
@@ -23,6 +25,10 @@ TOL = 1e-4
 # level = scale/127 of that row, and that step then propagates through the
 # following layers.
 TOL_INT8 = 2e-2
+# paths with int4 K/V (self or cross): the widest gap over weight and
+# feature seeds 0-3 was 4.34e-4 (int8c4p; int8c4 4.28e-4, int4 and
+# int8c4-paged 2.2e-4, int8c4p-paged 2.0e-6)
+TOL_INT4 = 2e-3
 STEPS, MAX_LEN, T_ENC = 8, 128, 64
 
 
@@ -78,12 +84,21 @@ def test_encoder_logits_and_cross_kv(models):
         assert np.abs(vp.numpy() - np.asarray(vj)).max() < TOL
 
 
-@pytest.mark.parametrize("overrides,tol", [
-    ({}, TOL),
-    ({"use_pallas_decode": True}, TOL),
-    ({"kv_quant": "int8", "use_pallas_decode": True}, TOL_INT8),
-    ({"kv_quant": "int8"}, TOL_INT8),
-], ids=["dense", "paged", "int8-paged", "int8-dense"])
+# every (kv_quant, use_pallas_decode) pair that ModelConfig accepts
+PATHS = {  # id → (overrides, tolerance)
+    "dense": ({}, TOL),
+    "paged": ({"use_pallas_decode": True}, TOL),
+    "int8-paged": ({"kv_quant": "int8", "use_pallas_decode": True}, TOL_INT8),
+    "int8-dense": ({"kv_quant": "int8"}, TOL_INT8),
+    "int4": ({"kv_quant": "int4"}, TOL_INT4),
+    "int8c4": ({"kv_quant": "int8c4"}, TOL_INT4),
+    "int8c4p": ({"kv_quant": "int8c4p"}, TOL_INT4),
+    "int8c4-paged": ({"kv_quant": "int8c4", "use_pallas_decode": True}, TOL_INT4),
+    "int8c4p-paged": ({"kv_quant": "int8c4p", "use_pallas_decode": True}, TOL_INT4),
+}
+
+
+@pytest.mark.parametrize("overrides,tol", list(PATHS.values()), ids=list(PATHS))
 def test_decode_step_paths(models, token_path, overrides, tol):
     jb, pb, feats = models
     jm = JaxYMT3(jb.cfg.replace(**overrides))
@@ -108,6 +123,43 @@ def test_decode_step_paths(models, token_path, overrides, tol):
             lp, kv_p = pm.decode_step(torch.from_numpy(tok).long(), pos, kv_p, cross_p)
         err = np.abs(lp.numpy() - np.asarray(lj)).max()
         assert err < tol, (pos, err)
+
+
+@pytest.mark.parametrize("overrides", [o for o, _ in PATHS.values()], ids=list(PATHS))
+def test_stream_reorder_matches_jax(models, token_path, overrides):
+    """A stream reorder through the self and the cross layout of each pair
+    equals gathering JAX's caches along that layout's stream axis (pages
+    on axis 1, everything else on axis 0): as new tensors (a compaction's
+    gather) and in place (the beam's parents)."""
+    jb, pb, feats = models
+    jm = JaxYMT3(jb.cfg.replace(**overrides))
+    jstep = jax.jit(functools.partial(jm.apply, method=JaxYMT3.decode_step))
+    mem_j = jb.model.apply(jb.params, jnp.asarray(feats), method=JaxYMT3.encode)
+    cross_j = jm.apply(jb.params, mem_j, method=JaxYMT3.init_cross_kv)
+    kv_j = jm.empty_self_kvs(2, MAX_LEN)
+    for pos in range(3):  # rows that differ between the streams
+        _, kv_j = jstep(jb.params, jnp.asarray(token_path[:, pos:pos + 1]),
+                        jnp.asarray(pos, jnp.int32), kv_j, cross_j)
+    dec = _port_model(pb, **overrides).decoder
+    kv_p, cross_p = _to_torch(kv_j), _to_torch(cross_j)
+    for parent in ([1, 0, 1], [1, 1]):
+        idx = torch.tensor(parent)
+        for layout, port, ref in ((dec.self_cache, kv_p, kv_j),
+                                  (dec.cross_cache, cross_p, cross_j)):
+            want = _leaves(jax_reorder(ref, jnp.asarray(parent)))
+            got = _leaves(layout.reorder(port, idx))
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert np.array_equal(a.numpy(), np.asarray(b)), parent
+    dec.self_cache.reorder_(kv_p, torch.tensor([1, 1]))
+    for a, b in zip(_leaves(kv_p), _leaves(jax_reorder(kv_j, jnp.asarray([1, 1])))):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+
+
+def _to_torch(tree):
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_torch(t) for t in tree)
+    return torch.from_numpy(np.array(tree))
 
 
 def _leaves(tree):

@@ -76,9 +76,11 @@ class ModelBundle:
 
 def fast_decode_overrides(num_channels: int, max_len: int) -> dict:
     """The fast decode path per shape: multi-channel or short decodes →
-    int8 dense KV; single-channel long decodes → the int8 paged kernel
-    (reads ∝ pos at half the bytes). Use kv_quant="none" for exact
-    outputs."""
+    int8 dense KV; single-channel long decodes → the int8 paged kernel.
+    Both int8 kernels read only the rows up to the position; the paged
+    one stays on the long single-channel decode (t5_small's 1024 steps of
+    a few streams), where the dense kernel was never timed. Use
+    kv_quant="none" for exact outputs."""
     if num_channels > 1 or max_len < 512:
         return {"kv_quant": "int8"}
     return {"kv_quant": "int8", "use_pallas_decode": True}

@@ -13,13 +13,14 @@ host branches eagerly (the forced prefix, the beam's first step), then
 captures one step as a CUDA graph on the loop's state, with the position
 in a 0-dim device tensor that the graph advances itself, and replays it
 at every later position: the host launches one graph a step instead of
-each of the step's kernels. Dense and paged self caches alike: the paged
-kernel and the paged cache writes read the position on the device. The
-graph and its memory pool live for the one call (`greedy_decode`
-captures once per phase). The CPU and a decode inside another capture
-run every step eagerly, through the same step function.
-`greedy_decode_early_exit` runs the eager step in chunks and drops
-finished streams from the batch between chunks.
+each of the step's kernels. Every cache layout reads the position on the
+device (models/kv_cache.py). The graph and its memory pool live for the
+one call (`greedy_decode` captures once per phase). The CPU and a decode
+inside another capture run every step eagerly, through the same step
+function. `greedy_decode_early_exit` runs the eager step in chunks and
+drops finished streams from the batch between chunks. The loops leave the
+caches' format to the model: the beam's parent reorder and a compaction's
+gather go through the decoder's cache layouts.
 """
 
 from __future__ import annotations
@@ -302,8 +303,8 @@ def greedy_decode_early_exit(
                 [act, np.zeros(padded - n_active, np.int64)])).to(dev)
             st.buf = st.buf.index_select(0, idx)
             st.done = torch.arange(padded, device=dev) >= n_active
-            st.self_kvs = reorder_cache_streams(st.self_kvs, idx)
-            cross_kvs = reorder_cache_streams(cross_kvs, idx)
+            st.self_kvs = model.decoder.self_cache.reorder(st.self_kvs, idx)
+            cross_kvs = model.decoder.cross_cache.reorder(cross_kvs, idx)
             order = order[act]
             greedy_decode_early_exit.compactions += 1
 
@@ -314,26 +315,6 @@ def greedy_decode_early_exit(
 greedy_decode_early_exit.compactions = 0  # compactions since the last reset
 profiling.register("decode.early_exit_compactions",
                    lambda f=greedy_decode_early_exit: f.compactions)
-
-
-def reorder_cache_streams(kvs, parent: torch.Tensor):
-    """Gather streams in every cache tensor (beam parents, or the active
-    rows of a compaction). `parent` is a flat index into the stream axis:
-    axis 1 for paged (5-D) tensors, axis 0 for everything else."""
-    if isinstance(kvs, (list, tuple)):
-        return type(kvs)(reorder_cache_streams(x, parent) for x in kvs)
-    return torch.index_select(kvs, 1 if kvs.ndim == 5 else 0, parent)
-
-
-def _reorder_cache_streams_(kvs, parent: torch.Tensor) -> None:
-    """`reorder_cache_streams` in place, one tensor at a time: the caches
-    keep their storage (a graphed step's static state) and the temporary
-    is one tensor, not a copy of every cache."""
-    if isinstance(kvs, (list, tuple)):
-        for x in kvs:
-            _reorder_cache_streams_(x, parent)
-    else:
-        kvs.copy_(reorder_cache_streams(kvs, parent))
 
 
 def beam_decode(
@@ -391,7 +372,7 @@ def beam_decode(
         top_v, top_i = torch.topk(cand.reshape(S, K * V), K, dim=-1)
         parent = top_i // V
         token = top_i % V
-        _reorder_cache_streams_(self_kvs, (base + parent).reshape(-1))
+        model.decoder.self_cache.reorder_(self_kvs, (base + parent).reshape(-1))
         buf.copy_(torch.gather(buf, 1, parent[:, :, None].expand(-1, -1, buf.shape[2])))
         _put_column(buf, pos + 1, token)
         done.copy_(torch.gather(done, 1, parent) | (token == eos_id))

@@ -18,18 +18,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.model import ModelConfig
-from ..ops.decode_attention import empty_paged_cache, empty_paged_scales
 from ..ops.weight_quant import quantize_decoder_weights
 from ..parallel.tensor_parallel import gather_from, local
 from ..tokens.codec import PAD_ID
 from .conformer import ConformerEncoder
 from .conv_block import Conv2dSame
+from .kv_cache import device_position
 from .layers import (DepthwiseConv1d, Dropout, FeedForward, MoEFeedForward,
                      MultiHeadAttention, QuantDense, RelativePositionBias,
                      lecun_truncated_normal_, normal_)
 from .perceiver_tf import PerceiverTFEncoder
 from .projection import EncoderProjection
-from .t5 import INT8_SELF, MultiChannelT5Decoder, T5Decoder, T5Encoder, compute_dtype
+from .t5 import MultiChannelT5Decoder, T5Decoder, T5Encoder, compute_dtype
 
 
 class YMT3(nn.Module):
@@ -125,8 +125,9 @@ class YMT3(nn.Module):
     def decode_step(self, token_ids: torch.Tensor, pos, self_kvs: List,
                     cross_kvs: List, kv_len: int = 0):
         """token_ids (S, 1) → ((S, vocab) fp32 logits, self caches). pos: a
-        host int, or a 0-dim int64 tensor on the caches' device
-        (T5Decoder.decode_step)."""
+        host int, or a 0-dim int64 tensor on the caches' device; a host int
+        becomes one here, so everything below takes the device position."""
+        pos = device_position(pos, token_ids.device)
         h, kvs = self.decoder.decode_step(self.embed(token_ids), pos,
                                           self_kvs, cross_kvs, kv_len=kv_len)
         return self.lm_head(h).to(torch.float32)[:, 0, :], kvs
@@ -134,49 +135,11 @@ class YMT3(nn.Module):
     # ---- cache scaffolding ---------------------------------------------
     def empty_self_kvs(self, batch_streams: int, max_len: int,
                        device=None) -> List:
-        c = self.cfg
+        """Zeroed per-layer (k, v) self caches of `batch_streams` streams and
+        `max_len` positions in the decoder's self-cache layout."""
         device = device if device is not None else self.shared.weight.device
-        kvh = c.decoder_kv_heads or c.num_heads
-        dt = self.dtype
-        n = c.num_decoder_layers
-        if c.kv_quant == "int4":
-            # interleaved nibbles (S, H, L, dk/2) uint8 + fp32 row scales
-            vals = (batch_streams, kvh, max_len, c.d_kv // 2)
-            scls = (batch_streams, kvh, max_len)
-
-            def pair():
-                return (torch.zeros(vals, dtype=torch.uint8, device=device),
-                        torch.zeros(scls, dtype=torch.float32, device=device))
-            return [(pair(), pair()) for _ in range(n)]
-        if c.use_pallas_decode:
-            # pages of 64 for short decodes, 128 for long ones
-            block = 64 if max_len <= 256 else 128
-            padded = -(-max_len // block) * block
-            if c.kv_quant in INT8_SELF:
-                def pair():
-                    return (empty_paged_cache(batch_streams, kvh, c.d_kv, padded,
-                                              block, torch.int8, device),
-                            empty_paged_scales(batch_streams, kvh, padded, block,
-                                               device))
-                return [(pair(), pair()) for _ in range(n)]
-            return [(empty_paged_cache(batch_streams, kvh, c.d_kv, padded,
-                                       block, dt, device),
-                     empty_paged_cache(batch_streams, kvh, c.d_kv, padded,
-                                       block, dt, device))
-                    for _ in range(n)]
-        if c.kv_quant in INT8_SELF:
-            # zero scales make unwritten positions contribute 0 logits
-            vals = (batch_streams, kvh, max_len, c.d_kv)
-            scls = (batch_streams, kvh, max_len)
-
-            def pair():
-                return (torch.zeros(vals, dtype=torch.int8, device=device),
-                        torch.zeros(scls, dtype=torch.float32, device=device))
-            return [(pair(), pair()) for _ in range(n)]
-        shape = (batch_streams, kvh, max_len, c.d_kv)
-        return [(torch.zeros(shape, dtype=dt, device=device),
-                 torch.zeros(shape, dtype=dt, device=device))
-                for _ in range(n)]
+        return [self.decoder.self_cache.empty(batch_streams, max_len, device)
+                for _ in range(self.cfg.num_decoder_layers)]
 
 
 def shift_right(labels: torch.Tensor, start_id: int = 0) -> torch.Tensor:

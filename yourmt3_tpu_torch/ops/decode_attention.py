@@ -3,9 +3,8 @@ plain PyTorch version, and the paged-cache helpers.
 
 Caches are paged (NB, S, H, block, dk), position-major within a page, so
 one decode step writes one (dk,) row per (stream, head). int8 caches keep
-fp32 row scales stream-major, (S, NB, H, block), so every cache tensor
-keeps its stream axis where the beam reorder expects it (axis 1 for 5-D,
-axis 0 otherwise).
+fp32 row scales stream-major, (S, NB, H, block): a beam reorder gathers
+pages on axis 1 and scales on axis 0 (models/kv_cache.py).
 
 `paged_decode_attention` launches the hand-written split-KV kernel
 (`csrc/paged_decode_attention.cu`, bound as the PyTorch operator
@@ -14,9 +13,10 @@ runs `paged_decode_attention_plain` for CPU tensors; it never falls back
 from one to the other. `paged_decode_attention_split_plain` repeats the
 kernel's split-and-merge algebra in plain PyTorch for the tests.
 
-The decode position is a host int or a 0-dim int64 tensor on the caches'
-device, which the kernel and the cache writes read without a host read:
-one CUDA graph of a decode step then serves every position.
+The kernel takes the decode position as a host int or as a 0-dim int64
+tensor on the caches' device, which it reads without a host read; the
+cache writes take the tensor's `paged_slot`. One CUDA graph of a decode
+step then serves every position.
 """
 
 from __future__ import annotations
@@ -252,23 +252,20 @@ def paged_cross_attention(q: torch.Tensor, k_paged: torch.Tensor,
     return paged_decode_attention(q, k_paged, v_paged, valid_len - 1)
 
 
-def paged_slot(pos, block: int):
-    """(page, row) of decode position `pos` in pages of `block` rows: host
-    ints for a host int; for a 0-dim int64 tensor, two 1-element tensors on
-    its device, computed there (no host read). A decode step computes it
-    once; every layer's cache and scale writes take it."""
-    if isinstance(pos, torch.Tensor):
-        pos = pos.view(1)
-        return torch.div(pos, block, rounding_mode="floor"), pos % block
-    return pos // block, pos % block
+def paged_slot(pos: torch.Tensor, block: int):
+    """(page, row) of decode position `pos`, a 0-dim int64 tensor, in pages
+    of `block` rows: two 1-element tensors on its device, computed there
+    (no host read). A decode step computes it once; every layer's cache
+    and scale writes take it."""
+    pos = pos.view(1)
+    return torch.div(pos, block, rounding_mode="floor"), pos % block
 
 
 def paged_cache_update(cache: torch.Tensor, step_kv: torch.Tensor,
                        slot) -> torch.Tensor:
     """Write one step's (S, H, 1, dk) K or V into the paged cache at
-    `slot`, the position's `paged_slot`. A slot of device tensors writes
-    through an index put, with no host read; it writes the bytes that the
-    host slot of the same position writes.
+    `slot`, the position's `paged_slot`: an index put, with no host
+    read.
 
     Writes IN PLACE (one (dk,) row per stream and head) and returns the
     same tensor."""
