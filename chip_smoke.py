@@ -23,7 +23,13 @@ Phases:
      and on the card), at t5_small's cross shape (S = 8 and 16, T = 256)
      and with 2 and 3 query rows per head, and timed at both beside its
      byte bound, its plain version, SDPA on dequantized bf16 K/V and the
-     paged kernel on int8 pages of the same rows; the fused
+     paged kernel on int8 pages of the same rows; the int8-weight
+     product's kernel is checked at the flagship's decode shapes (M = 1,
+     91, 104, 208 rows; the step's five (K, N) pairs) in bf16 and fp32, on
+     a row-strided x and at the cross projection's M = 26,624, and timed
+     at M = 104, 208 and 26,624 beside its bound, the five-kernel chain
+     the port ran before (plain_ms and library_ms) and the library GEMM
+     alone on a bf16 weight made once; the fused
      log-mel kernel is held at B in
      {1, 8, 16}; the
      launch probe's own path is its launch-overhead measurement (eager
@@ -41,8 +47,9 @@ Phases:
         weights): api.init_model + api.transcribe on a seeded 16 s song
         (8 segments, one batch, 104 decoder streams) with the beam-2
         repair; the int4 cross kernel's and the dense int8 kernel's
-        launches must each equal 8 x the decode steps run, and the paged
-        kernel must not launch;
+        launches must each equal 8 x the decode steps run, the int8-weight
+        product's 73 (8 layers x 9 + the LM head) x the steps + 16 a cross
+        projection, and the paged kernel must not launch;
   4. each kernel inside its model: 64 bf16 decode steps through the kernel
      against the plain path on the same tokens, and a small fp32 model on
      the card against the same model on the CPU;
@@ -674,6 +681,128 @@ def time_int8(dev):
     return rows
 
 
+# the int8-weight product's shapes: the flagship's decode step at its
+# greedy and beam rows, (K, N) of self q/k/v, o, wi_0/wi_1, wo and the LM
+# head; its cross projection (K, V of a layer, once a batch)
+LINEAR_ROWS = (104, 208)
+LINEAR_SHAPES = ((512, 384), (384, 512), (512, 1024), (1024, 512), (512, 597))
+CROSS_ROWS = 26624  # 8 segments x 13 channels x 256 frames
+BF16_FLOPS = 989e12  # H100 SXM, dense bf16
+
+
+def int8_weight(K, N, gen, dev):
+    """An int8 (N, K) weight quantized from N(0, 1/K) and its fp32 scales."""
+    import torch
+    from yourmt3_tpu_torch.ops.weight_quant import quantize_int8
+    w_q, scale = quantize_int8(torch.randn(N, K, generator=gen) / K ** 0.5)
+    return w_q.to(dev), scale.to(dev)
+
+
+def bf16_ulps(t):
+    """The spacing of bf16 numbers at each |t| (8 significant bits)."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(t.double().abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def check_int8_linear(dev):
+    """The int8-weight product's kernel against its plain version (the five
+    operations the port ran before it) on the card: the decode step's
+    shapes at M = 1, 91, 104 and 208 in bf16 and fp32, a row-strided x and
+    the cross projection's rows; two runs equal bit for bit. Both sum in
+    fp32 in other orders, which may part by `order` = 2^-16 of the sum of
+    |x w| (more than a bf16 ulp of the result where terms cancel); bf16:
+    both round the sum to bf16, so a pre-scale product may part by one ulp
+    plus `order`: held to that times the scale plus 2 ulps of the output;
+    fp32: `order` times the scale. → the largest |error| by dtype."""
+    import torch
+    import torch.nn.functional as F
+    from yourmt3_tpu_torch.ops.weight_quant import int8_linear, int8_linear_plain
+    gen = torch.Generator().manual_seed(11)
+    worst = {"fp32": 0.0, "bf16": 0.0}
+    cases = ([(M, K, N, None) for M in (1, 91) + LINEAR_ROWS for K, N in LINEAR_SHAPES]
+             + [(104, 512, 384, 576), (CROSS_ROWS, 512, 384, None)])
+    for M, K, N, stride in cases:
+        errs = {}
+        for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            if M == CROSS_ROWS and name == "fp32":
+                continue  # the cross projection runs in bf16
+            x = torch.randn(M, stride or K, generator=gen).to(dev, dt)[:, :K]
+            w_q, scale = int8_weight(K, N, gen, dev)
+            got = int8_linear(x, w_q, scale)
+            assert torch.equal(got, int8_linear(x, w_q, scale)), (M, K, N, name)
+            want = int8_linear_plain(x, w_q, scale)
+            err = (got.double() - want.double()).abs()
+            order = 2.0 ** -16 * (x.double().abs() @ w_q.double().abs().T)
+            if dt == torch.bfloat16:
+                pre = F.linear(x, w_q.to(dt))
+                tol = (bf16_ulps(pre) + order) * scale.double() + 2 * bf16_ulps(want)
+            else:
+                tol = order * scale.double()
+            assert got.dtype == dt and got.shape == (M, N)
+            assert bool((err <= tol).all()), (M, K, N, name, (err - tol).max().item())
+            errs[name] = err.max().item()
+            worst[name] = max(worst[name], errs[name])
+        torch.cuda.synchronize()
+        log(f"int8_linear check M={M} K={K} N={N}{' x rows 576 apart' if stride else ''}: "
+            + ", ".join(f"max|err| {n} {e:.3e}" for n, e in errs.items())
+            + " (two runs equal)")
+    return worst
+
+
+def bound_linear(M, K, N):
+    """(ms, "bytes" or "operations") of one bf16 call: x, the int8 weight,
+    its scales and the output each moved once; 2 M N K operations at the
+    dense bf16 rate."""
+    nbytes = 2 * M * K + N * K + 4 * N + 2 * M * N
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * M * N * K / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_int8_linear(dev):
+    """Times over CUDA-graph replays, 8 layers' weights cycled: each (K, N)
+    of the decode step at M = 104 and 208, and the cross projection (M =
+    26,624, K = 512, N = 384), beside the bound, the plain version, which
+    is the five-kernel chain the port ran before (the library yardstick:
+    library_ms is the same number), and the library GEMM alone on a bf16
+    weight made once (gemm_ms). → {(M, K, N): row}."""
+    import torch
+    import torch.nn.functional as F
+    from yourmt3_tpu_torch.ops.weight_quant import int8_linear, int8_linear_plain
+    gen = torch.Generator().manual_seed(12)
+    layers, rows = 8, {}
+    shapes = ([(M, K, N) for M in LINEAR_ROWS for K, N in LINEAR_SHAPES]
+              + [(CROSS_ROWS, 512, 384)])
+    for M, K, N in shapes:
+        x = torch.randn(M, K, generator=gen).to(dev, torch.bfloat16)
+        ws = [int8_weight(K, N, gen, dev) for _ in range(layers)]
+        w16 = [w.to(torch.bfloat16) for w, _ in ws]
+
+        def kernel():
+            for w, s in ws:
+                int8_linear(x, w, s)
+
+        def plain():
+            for w, s in ws:
+                int8_linear_plain(x, w, s)
+
+        def gemm():
+            for w in w16:
+                F.linear(x, w)
+
+        b_ms, b_by = bound_linear(M, K, N)
+        r = rows[M, K, N] = dict(ms=graph_ms(kernel, layers), plain_ms=graph_ms(plain, layers),
+                                 gemm_ms=graph_ms(gemm, layers), bound_ms=b_ms, bound_by=b_by)
+        r["library_ms"] = r["plain_ms"]
+        blocks = -(-M // 32) * -(-N // 32)
+        log(f"time int8_linear M={M} K={K} N={N} ({blocks} blocks): kernel "
+            f"{r['ms'] * 1e3:.2f} us, plain = library (five kernels) "
+            f"{r['plain_ms'] * 1e3:.2f} us, library GEMM alone on a bf16 weight "
+            f"{r['gemm_ms'] * 1e3:.2f} us, bound ({b_by}) {b_ms * 1e3:.3f} us = "
+            f"{100 * b_ms / r['ms']:.1f} % of the kernel's time")
+        del x, ws, w16
+    return rows
+
+
 def events_ms(fn, iters: int) -> float:
     """Device ms per call: `fn` issued eagerly `iters` times between two
     CUDA events, after one warm-up call."""
@@ -980,6 +1109,7 @@ def main_path(tmp):
     from yourmt3_tpu_torch.ops import decode_attention as da
     from yourmt3_tpu_torch.ops.int4_cross_attention import int4_cross_attention
     from yourmt3_tpu_torch.ops.kv_quant import int8_decode_attention
+    from yourmt3_tpu_torch.ops.weight_quant import int8_linear
     from yourmt3_tpu_torch.tokens.midi_io import midi2note
 
     seconds = 6.0
@@ -1008,6 +1138,7 @@ def main_path(tmp):
     assert launches == 8 * (greedy + beam) and launches > 0, (launches, greedy, beam)
     assert int8_launches == launches, (int8_launches, launches)
     assert int4_launches == 0, int4_launches
+    assert int8_linear.launches == 0, int8_linear.launches  # bf16 weights
     return launches
 
 
@@ -1019,9 +1150,11 @@ def reset_counts():
     from yourmt3_tpu_torch.ops import int4_cross_attention as ia
     from yourmt3_tpu_torch.ops import kv_quant as kq
     from yourmt3_tpu_torch.ops import launch_probe as lp
+    from yourmt3_tpu_torch.ops import weight_quant as wq
     da.paged_decode_attention.launches = 0
     ia.int4_cross_attention.launches = 0
     kq.int8_decode_attention.launches = 0
+    wq.int8_linear.launches = 0
     fl.fused_logmel.launches = 0
     lp.launch_probe.launches = 0
     decoding.greedy_decode.steps = 0
@@ -1037,6 +1170,7 @@ def flagship_path(tmp):
     from yourmt3_tpu_torch.ops import decode_attention as da
     from yourmt3_tpu_torch.ops import int4_cross_attention as ia
     from yourmt3_tpu_torch.ops import kv_quant as kq
+    from yourmt3_tpu_torch.ops import weight_quant as wq
     from yourmt3_tpu_torch.tokens.midi_io import midi2note
 
     seconds = 16.0
@@ -1049,28 +1183,43 @@ def flagship_path(tmp):
     bundle = api.init_model("perceiver_tf_mc13", "mc13_full_plus_256", seed=0,
                             **FLAGSHIP)
     t_init = time.perf_counter() - t0
+    cross_calls = [0]  # each projects K and V of every layer with int8 weights
+    init_cross_kv = bundle.model.init_cross_kv
+
+    def counted_cross_kv(memory):
+        cross_calls[0] += 1
+        return init_cross_kv(memory)
+
+    bundle.model.init_cross_kv = counted_cross_kv
     out = api.transcribe(bundle, wav, os.path.join(tmp, "flagship.mid"),
                          batch_size=8)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, paged = ia.int4_cross_attention.launches, da.paged_decode_attention.launches
     int8 = kq.int8_decode_attention.launches
+    lin = wq.int8_linear.launches
     greedy, beam = decoding.greedy_decode.steps, decoding.beam_decode.steps
     assert os.path.exists(out), out
     notes = midi2note(out)
+    layers = bundle.cfg.num_decoder_layers
+    # a step: self q, k, v, o, cross q, o, wi_0, wi_1, wo a layer, and the head
+    per_step, per_cross = 9 * layers + 1, 2 * layers
     log(f"main path: perceiver_tf_mc13 int8c4p + int8 weights, {seconds} s audio "
         f"(8 segments, 104 streams) in {wall:.2f} s (init {t_init:.2f} s + "
         f"transcribe {wall - t_init:.2f} s) = {seconds / wall:.3f} audio-s/s "
         f"({seconds / (wall - t_init):.3f} without init); decode steps greedy "
         f"{greedy} + beam {beam}; int4 kernel launches {launches}; dense int8 "
-        f"kernel launches {int8}; paged kernel launches {paged}; notes "
-        f"{len(notes)}; peak device memory "
+        f"kernel launches {int8}; int8_linear launches {lin} ({per_step} a step, "
+        f"{per_cross} in each of {cross_calls[0]} cross projections); paged kernel "
+        f"launches {paged}; notes {len(notes)}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    layers = bundle.cfg.num_decoder_layers
     assert launches == layers * (greedy + beam) and launches > 0, (launches, greedy, beam)
     assert int8 == launches, (int8, launches)  # the self-attention, one a layer
+    assert per_step == 73 and cross_calls[0] > 0, (per_step, cross_calls)
+    assert lin == per_step * (greedy + beam) + per_cross * cross_calls[0], (
+        lin, greedy, beam, cross_calls)
     assert paged == 0, paged
-    return launches, int8
+    return launches, int8, lin
 
 
 def kernel_in_model():
@@ -2829,10 +2978,12 @@ def main(argv=None) -> int:
     worst = check_kernel(dev)
     worst4 = check_int4(dev)
     worst8 = check_int8(dev)
+    worst_lin = check_int8_linear(dev)
     worst_mel = check_logmel(dev)
     rows = time_kernel(dev)
     rows4 = time_int4(dev)
     rows8 = time_int8(dev)
+    rows_lin = time_int8_linear(dev)
     rows_mel = time_logmel(dev)
     probe = probe_path(dev)
     wrapper_host_us(dev)
@@ -2841,7 +2992,7 @@ def main(argv=None) -> int:
     from yourmt3_tpu_torch import api
     with tempfile.TemporaryDirectory() as tmp:
         launches = main_path(tmp)
-        launches4, launches8 = flagship_path(tmp)
+        launches4, launches8, launches_lin = flagship_path(tmp)
         trained = train_path(tmp)
         evaluated = eval_path(tmp, dev, smi)
         t8 = time.perf_counter()
@@ -2866,6 +3017,7 @@ def main(argv=None) -> int:
 
     r, r4, rm = rows[8, 1023], rows4[104], rows_mel[TRAIN_BATCH]
     r8 = rows8["self", 104, 255]
+    rl = rows_lin[104, 512, 1024]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "yourmt3_tpu_torch/ops/csrc/paged_decode_attention.cu",
@@ -2887,6 +3039,13 @@ def main(argv=None) -> int:
         "launches": launches8, "max_abs_err": worst8["bf16"],
         "ms": r8["ms"], "plain_ms": r8["plain_ms"], "bound_ms": r8["bound_ms"],
         "bound_by": r8["bound_by"], "library_ms": r8["library_ms"],
+    }, {
+        "name": "int8_linear", "route": "cuda",
+        "source": "yourmt3_tpu_torch/ops/csrc/int8_linear.cu",
+        "replaces": "none (yourmt3_tpu/models/layers.py:110-117, jnp)",
+        "launches": launches_lin, "max_abs_err": worst_lin["bf16"],
+        "ms": rl["ms"], "plain_ms": rl["plain_ms"], "bound_ms": rl["bound_ms"],
+        "bound_by": rl["bound_by"], "library_ms": rl["library_ms"],
     }, {
         "name": "fused_logmel", "route": "cuda",
         "source": "yourmt3_tpu_torch/ops/csrc/fused_logmel.cu",

@@ -47,7 +47,8 @@ def test_command_lines(fake_nvcc):
     sources = [c[c.index("-c") + 1] for c in compiles]
     assert [os.path.basename(s) for s in sources] == [
         "paged_decode_attention.cu", "int4_cross_attention.cu",
-        "int8_decode_attention.cu", "fused_logmel.cu", "launch_probe.cu", "torch_ops.cpp"]
+        "int8_decode_attention.cu", "int8_linear.cu", "fused_logmel.cu", "launch_probe.cu",
+        "torch_ops.cpp"]
     assert all(os.path.exists(s) for s in sources)
     for c in compiles[:-1]:  # the kernels: sm_90a, no torch header
         assert ARCH in c and "-fPIC" in c

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.weight_quant import int8_linear, quantize_int8
 from ..parallel.tensor_parallel import (copy_to, gather_from, local, reduce_from,
                                         scatter_to)
 
@@ -161,7 +162,8 @@ class QuantDense(nn.Module):
 
     With a weight_quant mode set (ops/weight_quant.py) it reads the
     side-car `weight_q` instead: bf16, or int8 with per-output-channel
-    `weight_scale`. The int8 product is rounded to `dtype`, then scaled in
+    `weight_scale`. The int8 product (`ops.weight_quant.int8_linear`, a
+    hand-written kernel on CUDA) is rounded to `dtype`, then scaled in
     fp32 and rounded again, as the reference does. The side-cars are
     non-persistent buffers recomputed from the master whenever a state
     dict is loaded (`reset_parameters` callers call `requantize`).
@@ -190,7 +192,6 @@ class QuantDense(nn.Module):
 
     @torch.no_grad()
     def requantize(self) -> None:
-        from ..ops.weight_quant import quantize_int8
         for name in ("weight_q", "weight_scale"):
             if name in self._buffers:
                 del self._buffers[name]
@@ -220,10 +221,11 @@ class QuantDense(nn.Module):
             return reduce_from(F.linear(x.to(self.dtype), w), self.tp)
         if self.weight_quant == "none":
             return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
-        y = F.linear(x.to(self.dtype), self.weight_q.to(self.dtype))
         if self.weight_quant == "int8":
-            y = (y.to(torch.float32) * self.weight_scale).to(self.dtype)
-        return y
+            x = x.to(self.dtype)
+            y = int8_linear(x.reshape(-1, x.shape[-1]), self.weight_q, self.weight_scale)
+            return y.reshape(*x.shape[:-1], y.shape[-1])
+        return F.linear(x.to(self.dtype), self.weight_q.to(self.dtype))
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

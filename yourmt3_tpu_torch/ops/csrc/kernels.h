@@ -19,6 +19,7 @@ constexpr int LOGMEL_MAX_TILE = 64;     // frames per CTA: even, in [2, MAX]
 constexpr int LOGMEL_MAX_MELS = 512;    // mel columns: their bands stay in registers
 constexpr int INT8_DECODE_MAX_ROWS = 1024;  // rows a call reads: their logits stay in shared memory
 constexpr int INT8_DECODE_MAX_M = 8;        // query rows per KV head
+constexpr int INT8_LINEAR_K_MULTIPLE = 16;  // K: whole 16-byte chunks of a weight row
 
 extern "C" {
 
@@ -57,6 +58,12 @@ int int8_decode_attention_launch(const void* q, const void* k, const float* ks,
                                  void* out, int S, int H, int M, int L, int dk, int n,
                                  const int64_t* pos_dev, int pos, int q_dtype,
                                  void* stream);
+
+// x (M, K) fp32 (x_dtype 0) or bf16 (1), rows ldx elements apart, each on
+// a 16-byte boundary; w (N, K) int8; scale (N,) fp32; out (M, N) in x's
+// dtype. M, N >= 1; K a positive multiple of INT8_LINEAR_K_MULTIPLE.
+int int8_linear_launch(const void* x, int64_t ldx, const void* w, const float* scale,
+                       void* out, int M, int N, int K, int x_dtype, void* stream);
 
 // window, twiddles, bands and weights in the layout of
 // ops/fused_logmel.py:pack_bases; frames_per_cta even, in [2,

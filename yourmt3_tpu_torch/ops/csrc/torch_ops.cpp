@@ -14,6 +14,7 @@
 //   torch.ops.yourmt3_tpu_torch.paged_decode_splits      (its split choice)
 //   torch.ops.yourmt3_tpu_torch.int4_cross_attention     csrc/int4_cross_attention.cu
 //   torch.ops.yourmt3_tpu_torch.int8_decode_attention    csrc/int8_decode_attention.cu
+//   torch.ops.yourmt3_tpu_torch.int8_linear              csrc/int8_linear.cu
 //   torch.ops.yourmt3_tpu_torch.fused_logmel             csrc/fused_logmel.cu
 //   torch.ops.yourmt3_tpu_torch.launch_probe             csrc/launch_probe.cu
 
@@ -282,6 +283,43 @@ Tensor int8_decode_attention(const Tensor& q, const Tensor& k_q, const Tensor& k
   return out;
 }
 
+// x (M, K) fp32 or bf16, dense in its last dimension, its rows any stride
+// apart that keeps each on a 16-byte boundary; w_q (N, K) int8; scale (N,)
+// fp32 → (M, N) in x's dtype
+Tensor int8_linear(const Tensor& x, const Tensor& w_q, const Tensor& scale) {
+  TORCH_CHECK_VALUE(x.dim() == 2, "x must be (M, K), got ", x.sizes());
+  const int64_t M = x.size(0), K = x.size(1);
+  TORCH_CHECK_VALUE(w_q.dim() == 2 && w_q.size(1) == K, "w_q must be (N, K=", K, "), got ",
+                    w_q.sizes());
+  const int64_t N = w_q.size(0);
+  TORCH_CHECK_TYPE(x.scalar_type() == ScalarType::Float ||
+                       x.scalar_type() == ScalarType::BFloat16,
+                   "x has dtype ", x.scalar_type(), ", kernel takes (float, c10::BFloat16)");
+  check(w_q, "w_q", x, "x", {ScalarType::Char}, std::vector<int64_t>{N, K});
+  check(scale, "scale", x, "x", {ScalarType::Float}, std::vector<int64_t>{N});
+  TORCH_CHECK_VALUE(M >= 1 && N >= 1 && K >= INT8_LINEAR_K_MULTIPLE &&
+                        K % INT8_LINEAR_K_MULTIPLE == 0,
+                    "int8_linear takes M, N >= 1 and K a positive multiple of ",
+                    INT8_LINEAR_K_MULTIPLE, ", got M=", M, ", N=", N, ", K=", K);
+  TORCH_CHECK_VALUE(x.stride(1) == 1, "x must be dense in its last dimension, got strides ",
+                    x.strides());
+  TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(x.data_ptr()) % 16 == 0 &&
+                        (M == 1 || x.stride(0) * x.element_size() % 16 == 0),
+                    "x's rows must start on 16-byte boundaries, got row stride ",
+                    x.stride(0));
+  TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(w_q.data_ptr()) % 16 == 0,
+                    "w_q must be 16-byte aligned");
+
+  const c10::cuda::CUDAGuard guard(x.device());
+  Tensor out = at::empty({M, N}, x.options());
+  const int err = int8_linear_launch(
+      x.data_ptr(), M == 1 ? K : x.stride(0), w_q.data_ptr(), scale.data_ptr<float>(),
+      out.data_ptr(), static_cast<int>(M), static_cast<int>(N), static_cast<int>(K),
+      dtype_code(x.scalar_type()), stream_of(x));
+  check_launch(err, "int8_linear");
+  return out;
+}
+
 // window (n_fft,), twiddles (n_fft - R0, 2), bands (n_mels, 3) int32 and
 // weights (nnz,): the layout of ops/fused_logmel.py:pack_bases
 Tensor fused_logmel(const Tensor& audio, const Tensor& window, const Tensor& twiddles,
@@ -356,6 +394,7 @@ TORCH_LIBRARY(yourmt3_tpu_torch, m) {
         "-> Tensor");
   m.def("int8_decode_attention(Tensor q, Tensor k_q, Tensor k_s, Tensor v_q, Tensor v_s, "
         "Tensor? bias, int n, Tensor? pos) -> Tensor");
+  m.def("int8_linear(Tensor x, Tensor w_q, Tensor scale) -> Tensor");
   m.def("fused_logmel(Tensor audio, Tensor window, Tensor twiddles, Tensor bands, "
         "Tensor weights, int input_frames, int num_frames, int hop_length, "
         "float log_offset, bool power2, int frames_per_cta) -> Tensor");
@@ -366,7 +405,8 @@ TORCH_LIBRARY(yourmt3_tpu_torch, m) {
 // spares each call the dispatcher's boxed autograd fallback.
 TORCH_LIBRARY_IMPL(yourmt3_tpu_torch, Autograd, m) {
   for (const char* name : {"paged_decode_attention", "int4_cross_attention",
-                           "int8_decode_attention", "fused_logmel", "launch_probe"})
+                           "int8_decode_attention", "int8_linear", "fused_logmel",
+                           "launch_probe"})
     m.impl(name, torch::CppFunction::makeFallthrough());
 }
 
@@ -374,6 +414,7 @@ TORCH_LIBRARY_IMPL(yourmt3_tpu_torch, CUDA, m) {
   m.impl("paged_decode_attention", &paged_decode_attention);
   m.impl("int4_cross_attention", &int4_cross_attention);
   m.impl("int8_decode_attention", &int8_decode_attention);
+  m.impl("int8_linear", &int8_linear);
   m.impl("fused_logmel", &fused_logmel);
   m.impl("launch_probe", &launch_probe);
 }
